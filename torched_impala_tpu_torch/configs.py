@@ -1,0 +1,163 @@
+"""Experiment configs and the builders that turn one into the port's
+objects (counterpart of `torched_impala_tpu/configs.py`, cut to the
+fields and presets of this slice; preset values are unchanged).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+from torched_impala_tpu_torch.models.agent import Agent
+from torched_impala_tpu_torch.models.nets import ImpalaNet
+from torched_impala_tpu_torch.models.torsos import AtariShallowTorso, MLPTorso
+from torched_impala_tpu_torch.ops.losses import ImpalaLossConfig
+from torched_impala_tpu_torch.optim import RMSProp, linear_schedule
+from torched_impala_tpu_torch.runtime.learner import LearnerConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ExperimentConfig:
+    """The fields of the JAX `ExperimentConfig` that this slice reads."""
+
+    name: str
+    obs_shape: tuple = ()
+    obs_dtype: str = "float32"
+    num_actions: int = 2
+    model: str = "mlp"  # mlp | shallow_cnn
+    # Torso compute dtype; params, heads and all loss math stay float32.
+    compute_dtype: str = "float32"
+    loss_reduction: str = "sum"
+    num_actors: int = 4
+    envs_per_actor: int = 1
+    actor_mode: str = "thread"
+    unroll_length: int = 20
+    batch_size: int = 8
+    total_env_frames: int = 1_000_000
+    lr: float = 6e-4
+    lr_anneal: bool = True  # linear anneal to 0 over total_learner_steps
+    rmsprop_decay: float = 0.99
+    rmsprop_eps: float = 1e-7
+    max_grad_norm: float = 40.0
+    discount: float = 0.99
+    entropy_coef: float = 0.01
+    vf_coef: float = 0.5
+
+    @property
+    def frames_per_step(self) -> int:
+        return self.unroll_length * self.batch_size
+
+    @property
+    def total_learner_steps(self) -> int:
+        return max(1, self.total_env_frames // self.frames_per_step)
+
+
+CARTPOLE = ExperimentConfig(
+    name="cartpole",
+    obs_shape=(4,),
+    num_actions=2,
+    model="mlp",
+    num_actors=4,
+    unroll_length=20,
+    batch_size=8,
+    total_env_frames=200_000,
+    lr=5e-3,
+    lr_anneal=False,
+)
+
+PONG = ExperimentConfig(
+    name="pong",
+    obs_shape=(84, 84, 4),
+    obs_dtype="uint8",
+    num_actions=6,
+    model="shallow_cnn",
+    compute_dtype="bfloat16",
+    actor_mode="process",
+    num_actors=32,
+    unroll_length=20,
+    batch_size=32,
+    total_env_frames=200_000_000,
+)
+
+PRESETS = {c.name: c for c in (CARTPOLE, PONG)}
+
+
+def make_agent(cfg: ExperimentConfig, seed: int = 0) -> Agent:
+    """The policy agent for `cfg`, params initialised on the CPU from
+    `seed` (move it with the learner)."""
+    g = torch.Generator().manual_seed(seed)
+    if cfg.model == "mlp":
+        torso = MLPTorso(cfg.obs_shape[-1], dtype=cfg.compute_dtype, generator=g)
+    elif cfg.model == "shallow_cnn":
+        torso = AtariShallowTorso(
+            cfg.obs_shape[-1], dtype=cfg.compute_dtype, generator=g
+        )
+    else:
+        raise NotImplementedError(
+            f"model {cfg.model!r} is not ported yet (ROADMAP.md queue 1, item 2)"
+        )
+    return Agent(ImpalaNet(cfg.num_actions, torso, generator=g))
+
+
+def make_learner_config(cfg: ExperimentConfig) -> LearnerConfig:
+    return LearnerConfig(
+        batch_size=cfg.batch_size,
+        unroll_length=cfg.unroll_length,
+        loss=ImpalaLossConfig(
+            discount=cfg.discount,
+            vf_coef=cfg.vf_coef,
+            entropy_coef=cfg.entropy_coef,
+            reduction=cfg.loss_reduction,
+        ),
+        max_grad_norm=cfg.max_grad_norm,
+    )
+
+
+def make_lr_schedule(cfg: ExperimentConfig):
+    """Linear anneal from cfg.lr to 0 over the run's learner steps, indexed
+    by the optimizer's step count; a constant with lr_anneal=False."""
+    if not cfg.lr_anneal:
+        return cfg.lr
+    return linear_schedule(cfg.lr, 0.0, cfg.total_learner_steps)
+
+
+def make_optimizer(cfg: ExperimentConfig) -> RMSProp:
+    return RMSProp(
+        make_lr_schedule(cfg), decay=cfg.rmsprop_decay, eps=cfg.rmsprop_eps
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class _EnvFactory:
+    """(seed, env_index=None) -> env for one preset (fake envs only)."""
+
+    cfg: ExperimentConfig
+
+    def __call__(self, seed: int, env_index: Optional[int] = None):
+        from torched_impala_tpu_torch.envs.fake import FakeAtariEnv, FakeDiscreteEnv
+
+        cfg = self.cfg
+        if cfg.obs_dtype == "uint8":
+            if tuple(cfg.obs_shape) != (84, 84, 4):
+                raise NotImplementedError(
+                    f"fake pixel envs are 84x84x4 only, got {cfg.obs_shape}"
+                )
+            return FakeAtariEnv(num_actions=cfg.num_actions, seed=seed)
+        return FakeDiscreteEnv(
+            obs_shape=cfg.obs_shape, num_actions=cfg.num_actions, seed=seed
+        )
+
+
+def make_env_factory(
+    cfg: ExperimentConfig, *, fake: bool = False
+) -> Callable[..., object]:
+    """Env factory for `cfg`. Only the shape-faithful fakes are ported:
+    the real emulators (gymnasium, ale-py) are absent on the port's hosts."""
+    if not fake:
+        raise NotImplementedError(
+            "real environments are not ported yet; pass fake=True "
+            "(--fake-envs) (ROADMAP.md queue 1, item 4)"
+        )
+    return _EnvFactory(cfg)
