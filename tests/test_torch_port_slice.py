@@ -109,6 +109,11 @@ def test_unported_paths_raise():
             actor_mode="process",
             device="cpu",
         )
+    from torched_impala_tpu_torch.models.nets import ImpalaNet
+    from torched_impala_tpu_torch.models.torsos import MLPTorso
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ImpalaNet(2, MLPTorso(4, (8,)), core="transformer")
 
 
 def _imported_roots(path: Path) -> set:

@@ -2,9 +2,12 @@
 
 The JAX package `torched_impala_tpu` is the reference; this package grows
 beside it slice by slice (ROADMAP.md) and never imports it, nor JAX.
-The first slice is the Pong actor-learner loop: Nature-CNN torso with a
-bf16 compute path, thread actors, a learner whose V-trace recursion runs
-in a hand-written CUDA kernel (`ops/vtrace_cuda.py`, `csrc/vtrace.cu`).
+It trains the Pong preset (Nature-CNN, bf16 torso) and the Breakout
+preset (IMPALA deep ResNet, bf16 torso, LSTM core with episode resets)
+with thread actors and a learner on the card. Three TPU kernels run as
+hand-written CUDA kernels (`csrc/`): the V-trace recursion
+(`ops/vtrace_cuda.py`), the fused LSTM cell (`ops/lstm_cuda.py`) and the
+fused residual block (`ops/conv_block_cuda.py`, with `--fused-conv`).
 
 Entry points run on the CUDA card unless the caller passes
 `device="cpu"` (`device.resolve_device`); on the CPU every kernel's

@@ -12,7 +12,11 @@ import torch
 
 from torched_impala_tpu_torch.models.agent import Agent
 from torched_impala_tpu_torch.models.nets import ImpalaNet
-from torched_impala_tpu_torch.models.torsos import AtariShallowTorso, MLPTorso
+from torched_impala_tpu_torch.models.torsos import (
+    AtariDeepTorso,
+    AtariShallowTorso,
+    MLPTorso,
+)
 from torched_impala_tpu_torch.ops.losses import ImpalaLossConfig
 from torched_impala_tpu_torch.optim import RMSProp, linear_schedule
 from torched_impala_tpu_torch.runtime.learner import LearnerConfig
@@ -26,7 +30,12 @@ class ExperimentConfig:
     obs_shape: tuple = ()
     obs_dtype: str = "float32"
     num_actions: int = 2
-    model: str = "mlp"  # mlp | shallow_cnn
+    model: str = "mlp"  # mlp | shallow_cnn | deep_resnet
+    use_lstm: bool = False  # LSTM(lstm_size) core between torso and heads
+    lstm_size: int = 256
+    # Residual blocks through the fused block (ops/conv_block.py: the CUDA
+    # kernel on the card); deep_resnet only.
+    fused_conv: bool = False
     # Torso compute dtype; params, heads and all loss math stay float32.
     compute_dtype: str = "float32"
     loss_reduction: str = "sum"
@@ -81,12 +90,31 @@ PONG = ExperimentConfig(
     total_env_frames=200_000_000,
 )
 
-PRESETS = {c.name: c for c in (CARTPOLE, PONG)}
+BREAKOUT = ExperimentConfig(
+    name="breakout",
+    obs_shape=(84, 84, 4),
+    obs_dtype="uint8",
+    num_actions=4,
+    model="deep_resnet",
+    compute_dtype="bfloat16",
+    use_lstm=True,
+    actor_mode="process",
+    num_actors=256,
+    unroll_length=20,
+    batch_size=32,
+    total_env_frames=200_000_000,
+)
+
+PRESETS = {c.name: c for c in (CARTPOLE, PONG, BREAKOUT)}
 
 
 def make_agent(cfg: ExperimentConfig, seed: int = 0) -> Agent:
     """The policy agent for `cfg`, params initialised on the CPU from
     `seed` (move it with the learner)."""
+    if cfg.fused_conv and cfg.model != "deep_resnet":
+        raise ValueError(
+            f"fused_conv requires model='deep_resnet' (got model={cfg.model!r})"
+        )
     g = torch.Generator().manual_seed(seed)
     if cfg.model == "mlp":
         torso = MLPTorso(cfg.obs_shape[-1], dtype=cfg.compute_dtype, generator=g)
@@ -94,11 +122,24 @@ def make_agent(cfg: ExperimentConfig, seed: int = 0) -> Agent:
         torso = AtariShallowTorso(
             cfg.obs_shape[-1], dtype=cfg.compute_dtype, generator=g
         )
-    else:
-        raise NotImplementedError(
-            f"model {cfg.model!r} is not ported yet (ROADMAP.md queue 1, item 2)"
+    elif cfg.model == "deep_resnet":
+        torso = AtariDeepTorso(
+            cfg.obs_shape[-1],
+            in_hw=tuple(cfg.obs_shape[:2]),
+            dtype=cfg.compute_dtype,
+            fused_blocks=cfg.fused_conv,
+            generator=g,
         )
-    return Agent(ImpalaNet(cfg.num_actions, torso, generator=g))
+    else:
+        raise ValueError(f"unknown model {cfg.model!r}")
+    net = ImpalaNet(
+        cfg.num_actions,
+        torso,
+        core="lstm" if cfg.use_lstm else "none",
+        lstm_size=cfg.lstm_size,
+        generator=g,
+    )
+    return Agent(net)
 
 
 def make_learner_config(cfg: ExperimentConfig) -> LearnerConfig:

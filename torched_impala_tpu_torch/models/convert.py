@@ -9,7 +9,13 @@ the mapping is by path: `torso/Conv_0/kernel` -> `torso.Conv_0.weight`.
 - conv kernels are HWIO in flax and OIHW in torch;
 - Dense kernels are `[in, out]` in flax and `[out, in]` in torch; the
   rows of the Dense after the conv flatten stay in flax's (h, w, c)
-  order because the port's forward flattens NHWC (models/torsos.py).
+  order because the port's forward flattens NHWC (models/torsos.py);
+- the deep torso's nested names map as they are
+  (`torso/ResidualBlock_3/Conv_1/kernel` -> `torso.ResidualBlock_3.Conv_1.weight`);
+- the LSTM's eight flax `DenseParams` (`lstm/{ii,if,ig,io}/kernel`,
+  `lstm/{hi,hf,hg,ho}/{kernel,bias}`) are concatenated along the last
+  axis in gate order (i, f, g, o) into `lstm.wi`, `lstm.wh`, `lstm.b`,
+  as the JAX `PallasLSTMCell` concatenates them (models/lstm.py).
 """
 
 from __future__ import annotations
@@ -31,10 +37,32 @@ def _flatten(tree: Mapping[str, Any], prefix: tuple = ()) -> dict:
     return out
 
 
+_GATES = ("i", "f", "g", "o")
+
+
+def _tensor(value: np.ndarray) -> torch.Tensor:
+    # np.array copies: the port owns (and may write) its tensors.
+    return torch.from_numpy(np.array(value, dtype=np.float32, order="C"))
+
+
+def _lstm_params(lstm: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    def cat(kind, leaf):
+        return _tensor(
+            np.concatenate([np.asarray(lstm[f"{kind}{g}"][leaf]) for g in _GATES], -1)
+        )
+
+    return {
+        "lstm.wi": cat("i", "kernel"),
+        "lstm.wh": cat("h", "kernel"),
+        "lstm.b": cat("h", "bias"),
+    }
+
+
 def params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     if "params" in tree and len(tree) == 1:
         tree = tree["params"]
-    state = {}
+    tree = dict(tree)
+    state = _lstm_params(tree.pop("lstm")) if "lstm" in tree else {}
     for path, leaf in _flatten(tree).items():
         module, kind = ".".join(path[:-1]), path[-1]
         if kind == "bias":
@@ -49,8 +77,5 @@ def params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
                 f"with shape {leaf.shape}"
             )
         name = "weight" if kind == "kernel" else "bias"
-        # np.array copies: the port owns (and may write) its tensors.
-        state[f"{module}.{name}"] = torch.from_numpy(
-            np.array(value, dtype=np.float32, order="C")
-        )
+        state[f"{module}.{name}"] = _tensor(value)
     return state

@@ -1,5 +1,6 @@
-"""Observation torsos: MLP and Nature-CNN (counterparts of
-`torched_impala_tpu/models/torsos.py:MLPTorso, AtariShallowTorso`).
+"""Observation torsos: MLP, Nature-CNN and the IMPALA deep ResNet
+(counterparts of `torched_impala_tpu/models/torsos.py:MLPTorso,
+AtariShallowTorso, ResidualBlock, AtariDeepTorso`).
 
 Public boundary: observations are `[N, ...obs]` in the JAX package's
 layout, so pixels arrive NHWC uint8 `[N, 84, 84, 4]`. Submodules keep the
@@ -20,7 +21,11 @@ Layout hazards pinned by tests/test_torch_port_models.py:
 - for uint8 input the 1/255 scale folds onto the first conv's kernel
   (`conv(x/255, w) == conv(x, w/255)`), as the JAX `_FirstPixelConv`
   does; its space-to-depth rewrite is a TPU-only reshaping of the same
-  sum, so the port runs the plain 8x8/4 VALID conv.
+  sum, so the port runs the plain 8x8/4 VALID conv;
+- flax's SAME max-pool 3x3/2 pads low = total // 2 and high the rest
+  with -inf (84 -> 42: (0, 1); 21 -> 11: (1, 1)); torch's `padding=1`
+  pads both sides and shifts the windows by one at even sizes, with the
+  same output sizes, so `max_pool_same` pads explicitly.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torched_impala_tpu_torch.ops.conv_block import fused_residual_block
 from torched_impala_tpu_torch.ops.precision import compute_dtype
 
 # flax's lecun_normal: a normal truncated at 2 std, rescaled so the
@@ -57,8 +63,10 @@ def init_dense_(layer: nn.Module, generator: Optional[torch.Generator]) -> None:
     nn.init.zeros_(layer.bias)
 
 
-def _conv(x, weight, bias, stride: int, dtype: torch.dtype) -> torch.Tensor:
-    y = F.conv2d(x, weight.to(dtype), stride=stride)
+def _conv(
+    x, weight, bias, stride: int, dtype: torch.dtype, padding: int = 0
+) -> torch.Tensor:
+    y = F.conv2d(x, weight.to(dtype), stride=stride, padding=padding)
     return y + bias.to(dtype)[:, None, None]
 
 
@@ -127,4 +135,125 @@ class AtariShallowTorso(nn.Module):
         h = F.relu(_conv(h, self.Conv_2.weight, self.Conv_2.bias, 1, dt))
         # Flatten in flax's (h, w, c) order.
         h = h.permute(0, 2, 3, 1).flatten(1)
+        return F.relu(_dense(h, self.Dense_0, dt))
+
+
+def _same_pads(size: int, window: int, stride: int) -> tuple[int, int]:
+    """flax/XLA SAME padding of one axis: (low, high), low = total // 2."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + window - size, 0)
+    return total // 2, total - total // 2
+
+
+def max_pool_same(x: torch.Tensor) -> torch.Tensor:
+    """flax `max_pool(window (3, 3), strides (2, 2), padding "SAME")` of an
+    NCHW tensor: -inf padding split low = total // 2 (module docstring)."""
+    top, bottom = _same_pads(x.shape[2], 3, 2)
+    left, right = _same_pads(x.shape[3], 3, 2)
+    x = F.pad(x, (left, right, top, bottom), value=float("-inf"))
+    return F.max_pool2d(x, kernel_size=3, stride=2)
+
+
+class ResidualBlock(nn.Module):
+    """relu -> 3x3 SAME conv -> relu -> 3x3 SAME conv -> x + out.
+
+    Unfused, each conv follows the torso's dtype rule (operands and bias
+    in the compute dtype, bias added in it) and the skip is added in the
+    compute dtype. With `fused=True` the block is one call of
+    `ops/conv_block.py:fused_residual_block` (the CUDA kernel on the
+    card), whose numbers are the TPU kernel's (f32 sums and bias adds);
+    the params are the same either way."""
+
+    def __init__(
+        self,
+        channels: int,
+        dtype: str = "float32",
+        fused: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> None:
+        super().__init__()
+        self.dtype = compute_dtype(dtype)
+        self.fused = fused
+        self.Conv_0 = nn.Conv2d(channels, channels, 3)
+        self.Conv_1 = nn.Conv2d(channels, channels, 3)
+        for layer in (self.Conv_0, self.Conv_1):
+            init_dense_(layer, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """`x`: NCHW in the compute dtype (a view over channels-last memory
+        in the torso)."""
+        c0, c1 = self.Conv_0, self.Conv_1
+        if self.fused:
+            hwio = (2, 3, 1, 0)  # OIHW -> HWIO, the kernel's layout
+            out = fused_residual_block(
+                x.permute(0, 2, 3, 1).contiguous(),
+                c0.weight.permute(hwio).contiguous(),
+                c0.bias,
+                c1.weight.permute(hwio).contiguous(),
+                c1.bias,
+            )
+            return out.permute(0, 3, 1, 2)
+        dt = self.dtype
+        out = F.relu(x)
+        out = _conv(out, c0.weight, c0.bias, 1, dt, padding=1)
+        out = F.relu(out)
+        out = _conv(out, c1.weight, c1.bias, 1, dt, padding=1)
+        return x + out
+
+
+class AtariDeepTorso(nn.Module):
+    """IMPALA deep ResNet: per section a 3x3 SAME conv, a SAME max-pool
+    3x3/2 and `blocks_per_section` residual blocks; then relu, a flatten
+    in flax's (h, w, c) order and Dense(hidden_size) + relu. At 84x84 with
+    (16, 32, 32): 84 -> 42 -> 21 -> 11, flatten 11*11*32 = 3872.
+
+    Submodules keep the flax names: `Conv_0..`, `ResidualBlock_0..` (each
+    with `Conv_0`, `Conv_1`), `Dense_0`. `in_hw` is the observation's
+    (height, width), which fixes Dense_0's input width."""
+
+    def __init__(
+        self,
+        in_channels: int = 4,
+        in_hw: tuple = (84, 84),
+        channel_sections: Sequence[int] = (16, 32, 32),
+        blocks_per_section: int = 2,
+        hidden_size: int = 256,
+        dtype: str = "float32",
+        fused_blocks: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> None:
+        super().__init__()
+        self.dtype = compute_dtype(dtype)
+        self.num_sections = len(channel_sections)
+        self.blocks_per_section = blocks_per_section
+        h, w = in_hw
+        c_in = in_channels
+        for i, channels in enumerate(channel_sections):
+            conv = nn.Conv2d(c_in, channels, 3)
+            init_dense_(conv, generator)
+            self.add_module(f"Conv_{i}", conv)
+            for j in range(blocks_per_section):
+                block = ResidualBlock(channels, dtype, fused_blocks, generator)
+                self.add_module(f"ResidualBlock_{i * blocks_per_section + j}", block)
+            c_in = channels
+            h, w = -(-h // 2), -(-w // 2)
+        self.Dense_0 = nn.Linear(h * w * c_in, hidden_size)
+        init_dense_(self.Dense_0, generator)
+        self.feature_size = hidden_size
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """`x`: NHWC `[N, H, W, C]`, uint8 pixels or float."""
+        dt = self.dtype
+        uint8 = x.dtype == torch.uint8
+        # NHWC -> NCHW as a view: the strides stay channels-last.
+        h = x.permute(0, 3, 1, 2).to(dt)
+        for i in range(self.num_sections):
+            conv = getattr(self, f"Conv_{i}")
+            w = conv.weight
+            if i == 0 and uint8:
+                w = w * (1.0 / 255.0)
+            h = max_pool_same(_conv(h, w, conv.bias, 1, dt, padding=1))
+            for j in range(self.blocks_per_section):
+                h = getattr(self, f"ResidualBlock_{i * self.blocks_per_section + j}")(h)
+        h = F.relu(h).permute(0, 2, 3, 1).flatten(1)
         return F.relu(_dense(h, self.Dense_0, dt))

@@ -5,10 +5,12 @@ compiled with nvcc for Hopper (`sm_90a`) into a shared library under
 `build/torch_kernels/<sha>/` at the root of the checkout, where `<sha>`
 hashes every file in `csrc/` and the compiler flags, so an edited source
 never loads a stale library. The build happens at first use; a failed
-build raises with the compiler's output.
+build raises with the compiler's output. `build_all` starts one nvcc per
+source, all at once, and waits for them together.
 
 Nothing here is imported or run unless a kernel is launched on a CUDA
-tensor: the CPU paths never need nvcc.
+tensor: the CPU paths never need nvcc. `check_input` is the wrappers'
+shared check of what a kernel takes.
 """
 
 from __future__ import annotations
@@ -31,6 +33,11 @@ _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
+def kernel_names() -> list[str]:
+    """Every kernel that has a source in `csrc/`, sorted."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
 def build_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in sorted(CSRC.iterdir()):
@@ -39,28 +46,56 @@ def build_dir() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
-def _build(name: str) -> Path:
-    lib = build_dir() / f"lib{name}.so"
-    if lib.exists():
-        return lib
-    src = CSRC / f"{name}.cu"
-    if not src.exists():
-        raise FileNotFoundError(f"no CUDA source for kernel {name!r}: {src}")
-    lib.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.tmp{os.getpid()}")
-    proc = subprocess.run(
-        ["nvcc", *NVCC_FLAGS, "-o", str(tmp), str(src)],
-        capture_output=True,
-        text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed for {name} (rc {proc.returncode}):\n"
-            f"{proc.stdout}{proc.stderr}"
+def build_all(names: list[str]) -> dict[str, Path]:
+    """Compile every kernel of `names` not built yet, one nvcc process per
+    source, all running at once; return each kernel's library path."""
+    out_dir = build_dir()
+    libs = {name: out_dir / f"lib{name}.so" for name in names}
+    running = []
+    for name, lib in libs.items():
+        if lib.exists():
+            continue
+        src = CSRC / f"{name}.cu"
+        if not src.exists():
+            raise FileNotFoundError(f"no CUDA source for kernel {name!r}: {src}")
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.name}.tmp{os.getpid()}")
+        proc = subprocess.Popen(
+            ["nvcc", *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT,
+            text=True,
         )
-    # Atomic publish: a concurrent process never loads a partial file.
-    os.replace(tmp, lib)
-    return lib
+        running.append((name, lib, tmp, proc))
+    failures = []
+    for name, lib, tmp, proc in running:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed for {name} (rc {proc.returncode}):\n{log}")
+        else:
+            # Atomic publish: a concurrent process never loads a partial file.
+            os.replace(tmp, lib)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return libs
+
+
+def check_input(kernel: str, name: str, t, shape: tuple, dtypes, device) -> None:
+    """Raise unless `t` is a contiguous CUDA tensor on `device` with this
+    shape and one of `dtypes` (shared by the port's kernel wrappers)."""
+    if not t.is_cuda:
+        raise ValueError(f"{kernel}: {name} must be a CUDA tensor, got {t.device}")
+    if t.device != device:
+        raise ValueError(f"{kernel}: {name} on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise ValueError(f"{kernel}: {name} must be {names}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(
+            f"{kernel}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}"
+        )
+    if not t.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -68,6 +103,6 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(_build(name)))
+            lib = ctypes.CDLL(str(build_all([name])[name]))
             _loaded[name] = lib
         return lib

@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 
 from torched_impala_tpu_torch.ops import _build
+from torched_impala_tpu_torch.ops._build import check_input
 from torched_impala_tpu_torch.ops.vtrace import VTraceOutput, threshold
 
 LAUNCHES = 0
@@ -39,21 +40,6 @@ def _library() -> ctypes.CDLL:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
     return lib
-
-
-def _check(name: str, x: torch.Tensor, shape: tuple, device) -> None:
-    if not x.is_cuda:
-        raise ValueError(f"vtrace_cuda: {name} must be a CUDA tensor, got {x.device}")
-    if x.device != device:
-        raise ValueError(f"vtrace_cuda: {name} on {x.device}, expected {device}")
-    if x.dtype != torch.float32:
-        raise ValueError(f"vtrace_cuda: {name} must be float32, got {x.dtype}")
-    if tuple(x.shape) != shape:
-        raise ValueError(
-            f"vtrace_cuda: {name} has shape {tuple(x.shape)}, expected {shape}"
-        )
-    if not x.is_contiguous():
-        raise ValueError(f"vtrace_cuda: {name} must be contiguous")
 
 
 def vtrace_cuda(
@@ -83,9 +69,10 @@ def vtrace_cuda(
         "rewards": rewards,
         "values": values,
     }
+    f32 = (torch.float32,)
     for name, x in inputs.items():
-        _check(name, x, (T, B), device)
-    _check("bootstrap_value", bootstrap_value, (B,), device)
+        check_input("vtrace_cuda", name, x, (T, B), f32, device)
+    check_input("vtrace_cuda", "bootstrap_value", bootstrap_value, (B,), f32, device)
     # The outputs are targets: no gradient flows through the kernel.
     ins = [x.detach() for x in (*inputs.values(), bootstrap_value)]
     vs, pg, err = (torch.empty((T, B), dtype=torch.float32, device=device) for _ in range(3))

@@ -4,6 +4,9 @@ train mode with thread actors and fake envs only).
     python -m torched_impala_tpu_torch.run --config pong --fake-envs \\
         --actor-mode thread --num-actors 4 --envs-per-actor 8 \\
         --total-steps 100 [--device cpu]
+    python -m torched_impala_tpu_torch.run --config breakout --fake-envs \\
+        --actor-mode thread --num-actors 4 --envs-per-actor 8 \\
+        --total-steps 100 [--fused-conv] [--device cpu]
 
 The default device is the CUDA card; without one the run fails unless
 `--device cpu` is given.
@@ -21,12 +24,13 @@ import numpy as np
 from torched_impala_tpu_torch import configs
 from torched_impala_tpu_torch.runtime.loop import train
 
-# The CPU run README.md documents; the tests run it as written.
+# The CPU runs README.md documents; the tests run them as written.
 CPU_EXAMPLE = (
     "--config pong --fake-envs --actor-mode thread --num-actors 2 "
     "--envs-per-actor 2 --batch-size 4 --unroll-length 4 --total-steps 3 "
     "--device cpu"
 )
+BREAKOUT_CPU_EXAMPLE = CPU_EXAMPLE.replace("--config pong", "--config breakout")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -41,6 +45,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--unroll-length", type=int, default=None)
     p.add_argument("--total-steps", type=int, required=True,
                    help="learner updates to run")
+    p.add_argument("--fused-conv", action="store_true",
+                   help="residual blocks through the fused block kernel "
+                   "(deep_resnet only)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="'cuda' (default) or 'cpu'")
@@ -55,6 +62,7 @@ def build_config(args: argparse.Namespace) -> configs.ExperimentConfig:
         "envs_per_actor": args.envs_per_actor,
         "batch_size": args.batch_size,
         "unroll_length": args.unroll_length,
+        "fused_conv": args.fused_conv or None,
     }
     cfg = configs.PRESETS[args.config]
     return dataclasses.replace(

@@ -7,8 +7,9 @@ them, stacks them time-major (`stack_trajectories`), moves the batch to
 the learner's device and hands it over through a bounded queue (double
 buffering). `step_once` takes one batch and one SGD step:
 
-    unroll the net over [T+1, B] -> impala_loss (V-trace on the device:
-    the CUDA kernel on the card) -> backward -> global-norm clip
+    unroll the net over [T+1, B] from the batch's start state ->
+    impala_loss (V-trace on the device: the CUDA kernel on the card) ->
+    backward -> global-norm clip
     scale = min(1, max_grad_norm / (||g|| + 1e-8)) -> RMSProp
 
 then publishes the params for the actors. The clip
@@ -47,7 +48,8 @@ class LearnerConfig:
 
 
 def stack_trajectories(trajs: list[Trajectory]) -> Trajectory:
-    """Stack B unrolls into one time-major batch: leaves `[T(+1), B, ...]`."""
+    """Stack B unrolls into one time-major batch: leaves `[T(+1), B, ...]`;
+    the agent_state leaves (`[1, H]` each) concatenate on axis 0."""
     return Trajectory(
         obs=np.stack([t.obs for t in trajs], axis=1),
         first=np.stack([t.first for t in trajs], axis=1),
@@ -55,7 +57,10 @@ def stack_trajectories(trajs: list[Trajectory]) -> Trajectory:
         behaviour_logits=np.stack([t.behaviour_logits for t in trajs], axis=1),
         rewards=np.stack([t.rewards for t in trajs], axis=1),
         cont=np.stack([t.cont for t in trajs], axis=1),
-        agent_state=(),
+        agent_state=tuple(
+            np.concatenate(leaves, axis=0)
+            for leaves in zip(*(t.agent_state for t in trajs))
+        ),
         actor_id=-1,
         param_version=min(t.param_version for t in trajs),
     )
@@ -148,6 +153,7 @@ class Learner:
             put(batch.behaviour_logits),
             put(batch.rewards),
             put(batch.cont),
+            tuple(put(x) for x in batch.agent_state),
         )
 
     def _batcher_loop(self) -> None:
@@ -188,10 +194,11 @@ class Learner:
         self.param_store.publish(self.num_frames, self._params)
 
     def train_step(self, arrays: tuple) -> dict[str, torch.Tensor]:
-        """One SGD step on a device batch; returns device-scalar logs."""
-        obs, first, actions, behaviour_logits, rewards, cont = arrays
+        """One SGD step on a device batch (`_to_device`'s tuple: the six
+        trajectory arrays and the start state); returns device-scalar logs."""
+        obs, first, actions, behaviour_logits, rewards, cont, state = arrays
         cfg = self._config
-        net_out, _ = self._agent.unroll(obs, first, ())
+        net_out, _ = self._agent.unroll(obs, first, state)
         values = net_out.values[..., 0]  # [T+1, B]
         out = impala_loss(
             target_logits=net_out.policy_logits[:-1],

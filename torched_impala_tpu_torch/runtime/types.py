@@ -28,7 +28,9 @@ class Trajectory(NamedTuple):
       rewards: float32 `[T]` rewards following each action.
       cont: float32 `[T]` continuation flags (1 - done); the learner
         multiplies by gamma to get the discounts.
-      agent_state: recurrent state at obs[0] (() for feedforward nets).
+      agent_state: recurrent state at obs[0]: `(c [1, H], h [1, H])`
+        float32 for the LSTM core, () for feedforward nets. A stacked
+        batch holds `(c [B, H], h [B, H])`.
       actor_id: which actor produced this unroll.
       param_version: frame-count stamp of the params used to act.
     """

@@ -12,7 +12,9 @@ Alignment is the JAX actor's:
 - cont[t] = 0 where the step ended the episode (truncation counts as
   termination), and the env is reset at once, so obs[t+1] is the new
   episode's first observation with first[t+1] set;
-- obs[T], first[T] are the bootstrap observation and flag.
+- obs[T], first[T] are the bootstrap observation and flag;
+- agent_state is env i's recurrent carry at obs[0], before the core's
+  reset by first[0] (the learner's unroll applies that reset again).
 """
 
 from __future__ import annotations
@@ -89,7 +91,10 @@ class VectorActor:
         rewards = np.empty((T, E), np.float32)
         cont = np.empty((T, E), np.float32)
         logits_buf = None
-        start_state = self._state
+        # The carry at obs[0], on the host once per unroll: trajectory i
+        # gets its own rows [i:i+1] (np.array copies, so no later step
+        # can alias it).
+        start_state = tuple(np.array(x.cpu()) for x in self._state)
         for t in range(T):
             obs_buf[t] = self._obs
             first_buf[t] = self._first
@@ -135,7 +140,7 @@ class VectorActor:
                 behaviour_logits=logits_buf[:, i],
                 rewards=rewards[:, i],
                 cont=cont[:, i],
-                agent_state=start_state,
+                agent_state=tuple(x[i : i + 1] for x in start_state),
                 actor_id=self._id,
                 param_version=param_version,
             )
