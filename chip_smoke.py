@@ -28,19 +28,44 @@ non-zero (no phase's failure is caught):
    (1e-5); gradients through the autograd.Function (rtol 1e-4, atol
    1e-5 x the gradient's largest magnitude); times, bound and the cuDNN
    baseline (two F.conv2d calls with the relus and the add).
-6. model: the Pong net and the Breakout net (deep torso + LSTM, fused
-   blocks off and on) on the card against the same nets on the CPU, f32
-   (TF32 off) and bf16 torso, on a small input; the Breakout unroll has a
-   `first` reset in the middle and a non-zero start state.
-7. pong: `loop.train` with the PONG preset at full width (84x84x4 uint8,
+6. fused_loss: the fused V-trace loss kernel against its plain version
+   at (T, B, A) = (20, 32, 6), (100, 32, 15), (1, 1, 2), (7, 130, 4) x
+   the three threshold sets x lambda, with a mask with zeros (vs and the
+   advantages <= 1e-5 absolute, the three sums rtol 1e-5), and the whole
+   loss through the kernel against the loss through the plain sums,
+   reductions sum and mean (logs and gradients rtol 1e-5); times and
+   bound at the Pong shape (no single PyTorch call computes it).
+7. attention: the forward, dQ and dK/dV kernels against their plain
+   versions at the learner's shape (B=32, T=21, H=4, dh=64, W=128:
+   S=149, episodes that reset mid-unroll, a cache partly of an older
+   episode or empty), a long one (B=2, T=1024) and ragged ones (T=1 with
+   W=0; dh 16 and 32): f32 forward <= 2e-5 absolute (TF32 off),
+   gradients rtol 1e-4, atol 1e-5 x the largest gradient, bf16 within
+   one bf16 rounding; bf16 dtypes through the autograd.Function. Times
+   of each kernel and its plain version at the learner and long shapes,
+   bounds, `F.scaled_dot_product_attention` with the same boolean mask as
+   a yardstick, and fwd + bwd of the kernels against the einsum branch:
+   the measurement behind configs.KERNEL_MIN_SCORE_ELEMS.
+8. model: the Pong net, the Breakout net (deep torso + LSTM, fused
+   blocks off and on) and the pong_transformer net (kernel branch, from
+   a warm cache) on the card against the same nets on the CPU, f32 (TF32
+   off) and bf16 torso, on a small input; each unroll has a `first`
+   reset in the middle, the Breakout one a non-zero start state.
+9. pong: `loop.train` with the PONG preset at full width (84x84x4 uint8,
    Nature-CNN, bf16 torso, T=20, B=32 as 4 thread actors x 8 fake envs)
    for 20 learner steps on the card, with every kernel's launch count
    zeroed just before and read just after; then the learner's train step
    alone, timed on a fixed batch, one actor alone, and a profiled short
    run for the device's idle share.
-8. breakout: the same with the BREAKOUT preset (IMPALA deep ResNet,
+10. breakout: the same with the BREAKOUT preset (IMPALA deep ResNet,
    LSTM(256) core, bf16 torso, 4 actions) for 12 learner steps, once
    with the preset's unfused blocks and once with `fused_conv=True`.
+11. pong_transformer: the same with the PONG_TRANSFORMER preset
+   (Nature-CNN bf16 torso, transformer core d_model 256, 2 layers, 4
+   heads, window 128) for 12 learner steps with the attention kernels
+   forced and `fused_epilogue=True`; it must launch each attention
+   kernel >= 2 times a learner step, the fused loss >= once and V-trace
+   never.
 
 Then the `kernels` line, the card's name and power limit, and the last
 line `{"ok": true, "device": {...}}`. Without CUDA it exits 2 and prints
@@ -78,6 +103,14 @@ LSTM_ATOL = 5e-5
 BLOCK_SHAPES = [(672, 42, 42, 16), (672, 21, 21, 32), (672, 11, 11, 32), (8, 42, 42, 16)]
 BLOCK_F32_SHAPES = [(3, 13, 7, 24), (2, 42, 42, 16), (1, 1, 1, 1)]
 BF16_ULP = 2.0**-7
+FUSED_SHAPES = [(20, 32, 6), (100, 32, 15), (1, 1, 2), (7, 130, 4)]  # T, B, A
+# (B, T, H, dh, W): the learner's (T + 1 = 21 queries over S = W + 21),
+# a long unroll, and ragged ones.
+ATTN_LEARNER = (32, 21, 4, 64, 128)
+ATTN_LONG = (2, 1024, 4, 64, 128)
+ATTN_RAGGED = [(3, 1, 2, 16, 0), (3, 9, 2, 16, 7), (5, 40, 3, 32, 19)]
+ATTN_F32_ATOL = 2e-5
+PONG_TRANSFORMER_STEPS = 12
 
 
 START = time.monotonic()
@@ -514,6 +547,327 @@ def phase_resblock(device):
     )
 
 
+def loss_inputs(T, B, A, seed, device, mask_zeros=True):
+    """The fused loss's inputs on `device`: logits and values (leaves to
+    differentiate), behaviour logits, bootstrap, actions, rewards,
+    discounts and a mask with zeros."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+
+    mask = rng.uniform(size=(T, B)) > (0.2 if mask_zeros else -1.0)
+    return dict(
+        target_logits=t(rng.normal(size=(T, B, A))),
+        values=t(rng.normal(size=(T, B))),
+        behaviour_logits=t(rng.normal(size=(T, B, A))),
+        bootstrap_value=t(rng.normal(size=(B,))),
+        actions=torch.from_numpy(rng.integers(0, A, size=(T, B))).to(device),
+        rewards=t(rng.normal(size=(T, B))),
+        discounts=t(0.99 * (rng.uniform(size=(T, B)) > 0.05)),
+        mask=t(mask),
+    )
+
+
+def fused_scalars(x):
+    """The kernel's [T, B] operands from `loss_inputs`, as the fused
+    loss's forward makes them."""
+    import torch
+    import torch.nn.functional as F
+
+    log_p = F.log_softmax(x["target_logits"], dim=-1)
+    a = x["actions"][..., None]
+    log_pi_a = torch.gather(log_p, -1, a)[..., 0].contiguous()
+    log_mu_a = torch.gather(F.log_softmax(x["behaviour_logits"], dim=-1), -1, a)[..., 0]
+    ent = (-(log_p.exp() * log_p).sum(-1)).contiguous()
+    return (
+        log_pi_a, ent, x["values"], x["bootstrap_value"],
+        (log_pi_a - log_mu_a).contiguous(), x["discounts"], x["rewards"], x["mask"],
+    )
+
+
+def phase_fused_loss(device):
+    import torch
+
+    from torched_impala_tpu_torch.ops import fused_loss, fused_loss_cuda, losses
+    from torched_impala_tpu_torch.ops.vtrace import threshold
+
+    worst_tb, worst_sum_rel, per_shape = 0.0, 0.0, {}
+    for T, B, A in FUSED_SHAPES:
+        x = loss_inputs(T, B, A, seed=T * 100 + B, device=device)
+        args = fused_scalars(x)
+        err = 0.0
+        for clips in THRESHOLDS:
+            kw = dict(
+                clip_rho=threshold(clips.get("clip_rho_threshold", 1.0)),
+                clip_c=threshold(clips.get("clip_c_threshold", 1.0)),
+                clip_pg_rho=threshold(clips.get("clip_pg_rho_threshold", 1.0)),
+            )
+            for lambda_ in (1.0, 0.9):
+                out = fused_loss_cuda.fused_sums_cuda(*args, **kw, lambda_=lambda_)
+                ref = fused_loss.fused_sums_reference(*args, **kw, lambda_=lambda_)
+                torch.cuda.synchronize()
+                for a, b in zip(out[:3], ref[:3]):
+                    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+                    worst_sum_rel = max(worst_sum_rel, float((a - b).abs() / b.abs().clamp(min=1e-6)))
+                for a, b in zip(out[3:], ref[3:]):
+                    err = max(err, float((a - b).abs().max()))
+        per_shape[f"{T}x{B}x{A}"] = err
+        worst_tb = max(worst_tb, err)
+    if not worst_tb <= 1e-5:
+        raise AssertionError(f"fused loss kernel vs plain: vs/adv max abs err {per_shape}")
+
+    # The whole loss through the kernel against the loss through the plain
+    # sums, all else identical on the card: total, logs and gradients.
+    loss_err = 0.0
+    for T, B, A in FUSED_SHAPES:
+        for clips in THRESHOLDS:
+            for reduction in ("sum", "mean"):
+                cfg = losses.ImpalaLossConfig(fused_epilogue=True, reduction=reduction, **clips)
+                x = loss_inputs(T, B, A, seed=T + B, device=device)
+
+                def loss_and_grads():
+                    leaves = {k: x[k].clone().requires_grad_() for k in ("target_logits", "values")}
+                    out = losses.impala_loss(**{**x, **leaves}, config=cfg)
+                    g = torch.autograd.grad(out.total, list(leaves.values()))
+                    return out, g
+
+                out_k, grads_k = loss_and_grads()
+                real = fused_loss.fused_sums
+                fused_loss.fused_sums = fused_loss.fused_sums_reference
+                try:
+                    out_p, grads_p = loss_and_grads()
+                finally:
+                    fused_loss.fused_sums = real
+                for key in out_p.logs:
+                    torch.testing.assert_close(out_k.logs[key], out_p.logs[key], rtol=1e-5, atol=1e-6)
+                for gk, gp in zip(grads_k, grads_p):
+                    torch.testing.assert_close(gk, gp, rtol=1e-5, atol=1e-6)
+                    loss_err = max(loss_err, float((gk - gp).abs().max()))
+
+    T, B, A = FUSED_SHAPES[0]
+    args = fused_scalars(loss_inputs(T, B, A, seed=7, device=device))
+    kernel_ms = time_cuda(lambda: fused_loss_cuda.fused_sums_cuda(*args))
+    plain_ms = time_cuda(lambda: fused_loss.fused_sums_reference(*args))
+    device_us, _ = profiled_device_us(
+        lambda: fused_loss_cuda.fused_sums_cuda(*args), name="fused_loss_kernel"
+    )
+    # Seven [T, B] inputs and the bootstrap read, vs, adv and one row of
+    # three partial sums written.
+    bytes_moved = (7 * T * B + B) * 4 + 2 * T * B * 4 + 3 * 4
+    # Per element: the V-trace's 16 (csrc/vtrace.cu's count) and the
+    # three masked terms' 8 multiplies and adds.
+    ops = 24 * T * B
+    bound_ms, bound_by = bound(bytes_moved, ops, PEAK_F32_OPS_PER_S)
+    emit(
+        {
+            "phase": "fused_loss",
+            "vs_adv_max_abs_err": worst_tb,
+            "vs_adv_max_abs_err_by_shape": per_shape,
+            "sums_max_rel_err": worst_sum_rel,
+            "loss_grad_max_abs_diff": loss_err,
+            "pong_shape": [T, B, A],
+            "kernel_us": kernel_ms * 1e3,
+            "plain_us": plain_ms * 1e3,
+            "kernel_device_us_profiler": device_us,
+            "bound_us": bound_ms * 1e3,
+            "bound_by": bound_by,
+            "bytes": bytes_moved,
+            "library_call": None,
+        }
+    )
+    return dict(
+        max_abs_err=worst_tb, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None,
+    )
+
+
+def attention_inputs(B, T, H, dh, W, seed, device, dtype="float32"):
+    """q, k, v, dOut and the segments of one attention call: episodes that
+    reset mid-unroll and a cache whose slots are of this episode, of an
+    older one, or empty (-1)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    S = W + T
+    base = rng.integers(1, 4, size=(B, 1))
+    seg_q = base + np.cumsum(rng.uniform(size=(B, T)) < 4.0 / max(T, 4), axis=1)
+    cache = np.where(
+        rng.uniform(size=(B, W)) < 0.6, base, rng.choice([-1, 0], size=(B, W))
+    )
+    dt = getattr(torch, dtype)
+
+    def f(shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(device, dt)
+
+    def i32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+
+    return dict(
+        q=f((B, T, H, dh)), k=f((B, S, H, dh)), v=f((B, S, H, dh)), g=f((B, T, H, dh)),
+        seg_q=i32(seg_q), seg_ctx=i32(np.concatenate([cache, seg_q], axis=1)), W=W,
+    )
+
+
+def attention_work(x, itemsize):
+    """(bytes, operations) each kernel must move and do on these inputs:
+    every input read once and every output written once; each product
+    (q.k, dO.v, P v, dS k, dS q, P dO) counts 2 dh operations for each
+    visible (query, slot) pair of this data, the pairs the kernels do not
+    skip."""
+    import torch
+
+    from torched_impala_tpu_torch.ops import attention
+
+    B, T, H, dh = x["q"].shape
+    S = x["k"].shape[1]
+    visible = int(attention._visibility(x["seg_q"], x["seg_ctx"], T, S, x["W"]).sum())
+    q = B * T * H * dh * itemsize
+    kv = B * S * H * dh * itemsize
+    segs = B * (T + S) * 4
+    rows = B * H * T * 4  # lse, or D
+    pair = 2 * H * dh * visible
+    return {
+        "fwd": (q + 2 * kv + segs + B * T * H * dh * 4 + rows, 2 * pair),
+        "dq": (2 * q + 2 * kv + segs + 2 * rows + B * T * H * dh * 4, 3 * pair),
+        "dkv": (2 * q + 2 * kv + segs + 2 * rows + 2 * B * S * H * dh * 4, 4 * pair),
+    }
+
+
+def phase_attention(device):
+    import torch
+    import torch.nn.functional as F
+
+    from torched_impala_tpu_torch.models.transformer import einsum_attention
+    from torched_impala_tpu_torch.ops import attention, attention_cuda
+
+    def kernel_vs_plain(x, bf16=False):
+        """Max abs errors of the three kernels against their plain
+        versions on the same inputs; raises past the gates."""
+        args = (x["q"], x["k"], x["v"], x["seg_q"], x["seg_ctx"], x["W"])
+        out, lse = attention_cuda.attention_forward_cuda(*args)
+        ref_out, ref_lse = attention.windowed_attention_reference(*args)
+        # The backward kernels read the plain forward's output and lse, so
+        # each is held to its plain version on identical inputs.
+        dcap = attention.row_term(ref_out, x["g"])
+        bwd = (x["q"], x["k"], x["v"], x["g"], ref_lse, dcap, x["seg_q"], x["seg_ctx"], x["W"])
+        dq = attention_cuda.attention_dq_cuda(*bwd)
+        dk, dv = attention_cuda.attention_dkv_cuda(*bwd)
+        ref_dq = attention.attention_dq_reference(*bwd)
+        ref_dk, ref_dv = attention.attention_dkv_reference(*bwd)
+        torch.cuda.synchronize()
+        for a in (out, lse, dq, dk, dv):
+            if not torch.isfinite(a).all():
+                raise AssertionError("attention kernel: non-finite output")
+        if bf16:
+            fwd_tol = dict(rtol=BF16_ULP, atol=BF16_ULP)
+        else:
+            fwd_tol = dict(rtol=0.0, atol=ATTN_F32_ATOL)
+        torch.testing.assert_close(out, ref_out, **fwd_tol)
+        torch.testing.assert_close(lse, ref_lse, **fwd_tol)
+        errs = {"fwd": max(float((out - ref_out).abs().max()), float((lse - ref_lse).abs().max()))}
+        # atol scales with the largest gradient of the three: at T = 1,
+        # W = 0 dq is 0 in exact arithmetic and only rounding is left.
+        scale = max(float(a.abs().max()) for a in (ref_dq, ref_dk, ref_dv))
+        for name, got, want in (("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
+            tol = dict(rtol=BF16_ULP, atol=BF16_ULP * scale) if bf16 else dict(rtol=1e-4, atol=1e-5 * scale)
+            torch.testing.assert_close(got, want, **tol)
+            errs[name] = float((got - want).abs().max())
+        return errs
+
+    errors = {}
+    for shape in (ATTN_LEARNER, ATTN_LONG, *ATTN_RAGGED):
+        errors["x".join(map(str, shape))] = kernel_vs_plain(attention_inputs(*shape, seed=sum(shape), device=device))
+    errors["bf16_" + "x".join(map(str, ATTN_LEARNER))] = kernel_vs_plain(
+        attention_inputs(*ATTN_LEARNER, seed=1, device=device, dtype="bfloat16"), bf16=True
+    )
+    # Through the autograd.Function: bf16 in, bf16 out and bf16 grads.
+    x = attention_inputs(*ATTN_LEARNER, seed=2, device=device, dtype="bfloat16")
+    leaves = [x[k].clone().requires_grad_() for k in ("q", "k", "v")]
+    out = attention.windowed_attention(*leaves, x["seg_q"], x["seg_ctx"], x["W"])
+    grads = torch.autograd.grad((out.float() * x["g"].float()).sum(), leaves)
+    if out.dtype != torch.bfloat16 or any(g.dtype != torch.bfloat16 for g in grads):
+        raise AssertionError("attention: bf16 inputs must give bf16 output and grads")
+
+    def per_kernel_max(key):
+        """The f32 cases' largest error (the main path runs f32)."""
+        return max(e[key] for shape, e in errors.items() if not shape.startswith("bf16"))
+
+    def visibility_mask(x):
+        T, S = x["q"].shape[1], x["k"].shape[1]
+        return attention._visibility(x["seg_q"], x["seg_ctx"], T, S, x["W"])
+
+    times, checked = {}, {}
+    for label, shape in (("learner", ATTN_LEARNER), ("long", ATTN_LONG)):
+        x = attention_inputs(*shape, seed=3, device=device)
+        args = (x["q"], x["k"], x["v"], x["seg_q"], x["seg_ctx"], x["W"])
+        out, lse = attention.windowed_attention_reference(*args)
+        bwd = (x["q"], x["k"], x["v"], x["g"], lse, attention.row_term(out, x["g"]),
+               x["seg_q"], x["seg_ctx"], x["W"])
+        iters = 50 if label == "learner" else 10
+        t = dict(
+            fwd=time_cuda(lambda: attention_cuda.attention_forward_cuda(*args), iters=iters, warmup=5),
+            fwd_plain=time_cuda(lambda: attention.windowed_attention_reference(*args), iters=iters, warmup=5),
+            dq=time_cuda(lambda: attention_cuda.attention_dq_cuda(*bwd), iters=iters, warmup=5),
+            dq_plain=time_cuda(lambda: attention.attention_dq_reference(*bwd), iters=iters, warmup=5),
+            dkv=time_cuda(lambda: attention_cuda.attention_dkv_cuda(*bwd), iters=iters, warmup=5),
+            dkv_plain=time_cuda(lambda: attention.attention_dkv_reference(*bwd), iters=iters, warmup=5),
+        )
+        # The yardstick (never on the path): SDPA with the same boolean mask.
+        mask = visibility_mask(x)[:, None]
+        qh, kh, vh = (x[k].transpose(1, 2) for k in ("q", "k", "v"))
+        t["sdpa_fwd"] = time_cuda(
+            lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask), iters=iters, warmup=5
+        )
+        # fwd + bwd of the kernel path against the einsum branch: the
+        # measurement behind configs.KERNEL_MIN_SCORE_ELEMS.
+        leaves = [x[k].clone().requires_grad_() for k in ("q", "k", "v")]
+        emask = visibility_mask(x)
+
+        def kernel_fwd_bwd():
+            o = attention.windowed_attention(*leaves, x["seg_q"], x["seg_ctx"], x["W"])
+            torch.autograd.grad(o, leaves, x["g"])
+
+        def einsum_fwd_bwd():
+            o = einsum_attention(*leaves, emask)
+            torch.autograd.grad(o, leaves, x["g"])
+
+        def sdpa_fwd_bwd():
+            o = F.scaled_dot_product_attention(*(a.transpose(1, 2) for a in leaves), attn_mask=mask)
+            torch.autograd.grad(o, leaves, x["g"].transpose(1, 2))
+
+        t["kernel_fwd_bwd"] = time_cuda(kernel_fwd_bwd, iters=iters, warmup=5)
+        t["einsum_fwd_bwd"] = time_cuda(einsum_fwd_bwd, iters=iters, warmup=5)
+        t["sdpa_fwd_bwd"] = time_cuda(sdpa_fwd_bwd, iters=iters, warmup=5)
+        for name, kname in (("fwd", "attention_fwd_kernel"), ("dq", "attention_dq_kernel"),
+                            ("dkv", "attention_dkv_kernel")):
+            fn = {
+                "fwd": lambda: attention_cuda.attention_forward_cuda(*args),
+                "dq": lambda: attention_cuda.attention_dq_cuda(*bwd),
+                "dkv": lambda: attention_cuda.attention_dkv_cuda(*bwd),
+            }[name]
+            t[f"{name}_device_us_profiler"], _ = profiled_device_us(fn, calls=10, name=kname)
+        B, T, H, dh, W = shape
+        work = attention_work(x, itemsize=4)
+        for name in ("fwd", "dq", "dkv"):
+            t[f"{name}_bound_ms"], t[f"{name}_bound_by"] = bound(*work[name], PEAK_F32_OPS_PER_S)
+        t["score_elems"] = T * (W + T)
+        times[label] = t
+        if label == "learner":
+            checked = {
+                name: dict(
+                    max_abs_err=per_kernel_max(name) if name != "dkv" else max(per_kernel_max("dk"), per_kernel_max("dv")),
+                    ms=t[name], plain_ms=t[f"{name}_plain"], bound_ms=t[f"{name}_bound_ms"],
+                    bound_by=t[f"{name}_bound_by"], library_ms=t["sdpa_fwd"] if name == "fwd" else None,
+                )
+                for name in ("fwd", "dq", "dkv")
+            }
+    emit({"phase": "attention", "max_abs_err_by_shape": errors, "times_ms": times})
+    return {f"attention_{k}": v for k, v in checked.items()}
+
+
 def phase_model(device):
     import torch
 
@@ -527,6 +881,7 @@ def phase_model(device):
     state0 = tuple(torch.from_numpy(rng.normal(size=(4, 256)).astype(np.float32)) for _ in range(2))
     result = {"phase": "model"}
     tols = {"float32": dict(rtol=1e-4, atol=1e-5), "bfloat16": dict(rtol=0.0, atol=5e-2)}
+    transformer = dict(d_model=256, num_layers=2, num_heads=4, window=128, dense_kernel="kernel")
     nets = [
         ("pong", lambda dt, g: ImpalaNet(6, AtariShallowTorso(4, dtype=dt, generator=g), generator=g), ()),
         *(
@@ -540,14 +895,27 @@ def phase_model(device):
             )
             for fused in (False, True)
         ),
+        # A warm cache: the state after one unroll from a fresh one (None
+        # below), then an unroll with a reset in the middle.
+        (
+            "pong_transformer",
+            lambda dt, g: ImpalaNet(
+                6, AtariShallowTorso(4, dtype=dt, generator=g), core="transformer",
+                generator=g, transformer=transformer,
+            ),
+            None,
+        ),
     ]
     for name, build, state in nets:
         for dtype, tol in tols.items():
             net = build(dtype, torch.Generator().manual_seed(0))
             with torch.no_grad():
-                cpu_out, cpu_state = net(obs, first, state, unroll=True)
+                start = state
+                if start is None:
+                    _, start = net(obs.flip(0), torch.ones_like(first), net.initial_state(4), unroll=True)
+                cpu_out, cpu_state = net(obs, first, start, unroll=True)
                 net.to(device)
-                dev_state_in = tuple(s.to(device) for s in state)
+                dev_state_in = tuple(s.to(device) for s in start)
                 dev_out, dev_state = net(obs.to(device), first.to(device), dev_state_in, unroll=True)
             logits = dev_out.policy_logits.cpu()
             if not torch.isfinite(logits).all() or logits.shape != cpu_out.policy_logits.shape:
@@ -577,7 +945,7 @@ def fixed_batch(cfg, device, state):
     )
 
 
-def drive(name, cfg, steps, device, counters):
+def drive(name, cfg, steps, device):
     """`loop.train` with `cfg` for `steps` learner steps on the card, every
     kernel's launch count set to 0 just before and read just after; then
     the train step alone on a fixed batch, one actor alone, one fake env
@@ -597,8 +965,7 @@ def drive(name, cfg, steps, device, counters):
         log_times.append((logs["num_steps"], time.monotonic(), logs["total_loss"]))
 
     torch.cuda.reset_peak_memory_stats()
-    for module in counters.values():
-        module.LAUNCHES = 0
+    zero_launches()
     t0 = time.monotonic()
     result = loop.train(
         agent=agent,
@@ -615,7 +982,7 @@ def drive(name, cfg, steps, device, counters):
     )
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches = {k: module.LAUNCHES for k, module in counters.items()}
+    launches = read_launches()
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
 
     learner = result.learner
@@ -712,10 +1079,31 @@ def drive(name, cfg, steps, device, counters):
     return launches
 
 
-def kernel_counters():
-    from torched_impala_tpu_torch.ops import conv_block_cuda, lstm_cuda, vtrace_cuda
+def _wrappers():
+    from torched_impala_tpu_torch.ops import (
+        attention_cuda, conv_block_cuda, fused_loss_cuda, lstm_cuda, vtrace_cuda,
+    )
 
-    return {"vtrace": vtrace_cuda, "lstm_cell": lstm_cuda, "resblock": conv_block_cuda}
+    return attention_cuda, {
+        "vtrace": vtrace_cuda, "lstm_cell": lstm_cuda, "resblock": conv_block_cuda,
+        "fused_loss": fused_loss_cuda,
+    }
+
+
+def read_launches() -> dict:
+    """Every kernel wrapper's launch count, by kernel name."""
+    attention_cuda, modules = _wrappers()
+    counts = {name: module.LAUNCHES for name, module in modules.items()}
+    counts.update({f"attention_{k}": v for k, v in attention_cuda.LAUNCHES.items()})
+    return counts
+
+
+def zero_launches() -> None:
+    attention_cuda, modules = _wrappers()
+    for module in modules.values():
+        module.LAUNCHES = 0
+    for key in attention_cuda.LAUNCHES:
+        attention_cuda.LAUNCHES[key] = 0
 
 
 def phase_pong(device):
@@ -725,7 +1113,7 @@ def phase_pong(device):
         configs.PONG, actor_mode="thread", num_actors=4, envs_per_actor=8
     )
     assert cfg.num_actors * cfg.envs_per_actor == cfg.batch_size == 32
-    launches = drive("pong", cfg, PONG_STEPS, device, kernel_counters())
+    launches = drive("pong", cfg, PONG_STEPS, device)
     if launches["vtrace"] < PONG_STEPS:
         raise AssertionError(f"pong: {launches['vtrace']} vtrace launches < {PONG_STEPS} steps")
     return launches
@@ -743,7 +1131,7 @@ def phase_breakout(device, fused):
     )
     assert cfg.num_actors * cfg.envs_per_actor == cfg.batch_size == 32
     name = f"breakout_{'fused' if fused else 'unfused'}"
-    launches = drive(name, cfg, BREAKOUT_STEPS, device, kernel_counters())
+    launches = drive(name, cfg, BREAKOUT_STEPS, device)
     steps = BREAKOUT_STEPS
     # The learner's unroll calls the cell T+1 = 21 times a step (the
     # actors add one call per acting step); each torso forward runs the
@@ -759,6 +1147,33 @@ def phase_breakout(device, fused):
     return launches
 
 
+def phase_pong_transformer(device):
+    from torched_impala_tpu_torch import configs
+
+    cfg = dataclasses.replace(
+        configs.PONG_TRANSFORMER,
+        actor_mode="thread",
+        num_actors=4,
+        envs_per_actor=8,
+        transformer_dense_kernel="kernel",
+        fused_epilogue=True,
+    )
+    assert cfg.num_actors * cfg.envs_per_actor == cfg.batch_size == 32
+    steps = PONG_TRANSFORMER_STEPS
+    launches = drive("pong_transformer", cfg, steps, device)
+    # Each learner step unrolls the two layers over T + 1 = 21 queries
+    # (the actors' T = 1 steps take the einsum branch) and runs the fused
+    # loss in place of V-trace.
+    for key in ("attention_fwd", "attention_dq", "attention_dkv"):
+        if launches[key] < cfg.transformer_layers * steps:
+            raise AssertionError(f"pong_transformer: {launches[key]} {key} launches < 2 a step")
+    if launches["fused_loss"] < steps:
+        raise AssertionError(f"pong_transformer: {launches['fused_loss']} fused_loss launches < 1 a step")
+    if launches["vtrace"] != 0:
+        raise AssertionError(f"pong_transformer: {launches['vtrace']} vtrace launches, fused")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -769,13 +1184,15 @@ def main() -> int:
 
     device = resolve_device()
     smi = phase_env()
-    names = phase_build()
-    if names != ["lstm_cell", "resblock", "vtrace"]:
-        raise AssertionError(f"built {names}, but lstm_cell, resblock, vtrace are checked")
+    sources = phase_build()
+    if sources != ["attention_bwd", "attention_fwd", "fused_loss", "lstm_cell", "resblock", "vtrace"]:
+        raise AssertionError(f"built {sources}, but chip_smoke checks six sources")
     checked = {
         "vtrace": dict(phase_vtrace(device), library_ms=None),
         "lstm_cell": phase_lstm(device),
         "resblock": phase_resblock(device),
+        "fused_loss": phase_fused_loss(device),
+        **phase_attention(device),
     }
     phase_model(device)
     # Each kernel's launches come from the main path that runs it.
@@ -784,10 +1201,19 @@ def main() -> int:
         "lstm_cell": phase_breakout(device, fused=False)["lstm_cell"],
         "resblock": phase_breakout(device, fused=True)["resblock"],
     }
+    transformer_launches = phase_pong_transformer(device)
+    for name in ("fused_loss", "attention_fwd", "attention_dq", "attention_dkv"):
+        launches[name] = transformer_launches[name]
+    source = {name: name for name in ("vtrace", "lstm_cell", "resblock", "fused_loss", "attention_fwd")}
+    source.update(attention_dq="attention_bwd", attention_dkv="attention_bwd")
     replaces = {
         "vtrace": "torched_impala_tpu/ops/vtrace_pallas.py:92",
         "lstm_cell": "torched_impala_tpu/ops/lstm_pallas.py:78",
         "resblock": "torched_impala_tpu/ops/conv_pallas.py:76",
+        "fused_loss": "torched_impala_tpu/ops/vtrace_pallas.py:267",
+        "attention_fwd": "torched_impala_tpu/ops/attention_pallas.py:251",
+        "attention_dq": "torched_impala_tpu/ops/attention_pallas.py:438",
+        "attention_dkv": "torched_impala_tpu/ops/attention_pallas.py:458",
     }
     emit(
         {
@@ -795,7 +1221,7 @@ def main() -> int:
                 {
                     "name": name,
                     "route": "cuda",
-                    "source": f"torched_impala_tpu_torch/csrc/{name}.cu",
+                    "source": f"torched_impala_tpu_torch/csrc/{source[name]}.cu",
                     "replaces": replaces[name],
                     "launches": launches[name],
                     **{
@@ -803,7 +1229,7 @@ def main() -> int:
                         for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
                     },
                 }
-                for name in names
+                for name in replaces
             ]
         }
     )

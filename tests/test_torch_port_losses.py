@@ -125,7 +125,13 @@ def test_loss_parts_match_jax():
 
 @pytest.mark.parametrize("flag", ["fused_epilogue", "health_diagnostics"])
 def test_unported_options_raise(flag):
+    """The fused epilogue is ported in float32; its bf16 cube phase and
+    the health diagnostics are not."""
     x = {k: torch.from_numpy(v) for k, v in _inputs(3).items()}
-    cfg = port_losses.ImpalaLossConfig(**{flag: True})
+    options = {
+        "fused_epilogue": dict(fused_epilogue=True, train_dtype="bfloat16"),
+        "health_diagnostics": dict(health_diagnostics=True),
+    }
+    cfg = port_losses.ImpalaLossConfig(**options[flag])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_losses.impala_loss(**x, config=cfg)

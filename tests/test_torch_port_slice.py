@@ -112,8 +112,11 @@ def test_unported_paths_raise():
     from torched_impala_tpu_torch.models.nets import ImpalaNet
     from torched_impala_tpu_torch.models.torsos import MLPTorso
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ImpalaNet(2, MLPTorso(4, (8,)), core="transformer")
+    # The transformer core is ported; its sequence-parallel attention is not.
+    for attention in ("ring", "ulysses"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ImpalaNet(2, MLPTorso(4, (8,)), core="transformer",
+                      transformer=dict(d_model=8, num_heads=2, attention=attention))
 
 
 def _imported_roots(path: Path) -> set:
@@ -176,3 +179,48 @@ def test_fake_env_trajectory_alignment():
     np.testing.assert_array_equal(traj.cont, [1, 1, 0, 1, 1])
     assert traj.param_version == 7
     assert traj.behaviour_logits.shape == (5, 2)
+
+
+class _BrokenEnv:
+    """A ScriptedEnv that raises on its third step."""
+
+    def __init__(self):
+        from torched_impala_tpu_torch.envs.fake import ScriptedEnv
+
+        self._env, self._steps = ScriptedEnv(episode_len=50), 0
+
+    def reset(self, seed=None):
+        return self._env.reset(seed)
+
+    def step(self, action):
+        self._steps += 1
+        if self._steps == 3:
+            raise RuntimeError("env fault")
+        return self._env.step(action)
+
+
+@pytest.mark.filterwarnings("ignore::pytest.PytestUnhandledThreadExceptionWarning")
+def test_actor_failure_is_raised_while_others_feed_the_learner():
+    """Actor 0 dies in its first unroll while actor 1 alone keeps the
+    learner fed: the run still raises actor 0's error."""
+    from torched_impala_tpu_torch.envs.fake import ScriptedEnv
+    from torched_impala_tpu_torch.models.agent import Agent
+    from torched_impala_tpu_torch.models.nets import ImpalaNet
+    from torched_impala_tpu_torch.models.torsos import MLPTorso
+    from torched_impala_tpu_torch.optim import RMSProp
+    from torched_impala_tpu_torch.runtime.learner import LearnerConfig
+
+    def factory(seed, env_index):
+        return _BrokenEnv() if env_index == 0 else ScriptedEnv(episode_len=5)
+
+    with pytest.raises(RuntimeError, match="actor 0 failed") as info:
+        loop.train(
+            agent=Agent(ImpalaNet(2, MLPTorso(4, (8,)))),
+            env_factory=factory,
+            num_actors=2,
+            learner_config=LearnerConfig(batch_size=1, unroll_length=4),
+            optimizer=RMSProp(1e-3),
+            total_steps=4,
+            device="cpu",
+        )
+    assert "env fault" in str(info.value.__cause__)

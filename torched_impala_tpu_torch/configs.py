@@ -1,6 +1,6 @@
 """Experiment configs and the builders that turn one into the port's
 objects (counterpart of `torched_impala_tpu/configs.py`, cut to the
-fields and presets of this slice; preset values are unchanged).
+fields and presets of the ported slices; preset values are unchanged).
 """
 
 from __future__ import annotations
@@ -33,12 +33,29 @@ class ExperimentConfig:
     model: str = "mlp"  # mlp | shallow_cnn | deep_resnet
     use_lstm: bool = False  # LSTM(lstm_size) core between torso and heads
     lstm_size: int = 256
+    # Temporal core: "auto" resolves to lstm/none via use_lstm;
+    # "transformer" selects the sliding-window-KV causal core
+    # (models/transformer.py).
+    core: str = "auto"
+    transformer_d_model: int = 256
+    transformer_layers: int = 2
+    transformer_heads: int = 4
+    transformer_window: int = 128
+    # The transformer core's matmul compute dtype (params, LayerNorm
+    # statistics, softmax and the KV-cache state stay float32).
+    transformer_dtype: str = "float32"
+    # Learner-unroll attention: 'kernel' (ops/attention.py: the CUDA
+    # kernels on the card, their plain versions on the CPU), 'einsum'
+    # (plain products), or 'auto' (KERNEL_MIN_SCORE_ELEMS below).
+    transformer_dense_kernel: str = "auto"
     # Residual blocks through the fused block (ops/conv_block.py: the CUDA
     # kernel on the card); deep_resnet only.
     fused_conv: bool = False
     # Torso compute dtype; params, heads and all loss math stay float32.
     compute_dtype: str = "float32"
     loss_reduction: str = "sum"
+    # V-trace and the loss sums in one kernel (ops/fused_loss.py).
+    fused_epilogue: bool = False
     num_actors: int = 4
     envs_per_actor: int = 1
     actor_mode: str = "thread"
@@ -105,7 +122,58 @@ BREAKOUT = ExperimentConfig(
     total_env_frames=200_000_000,
 )
 
-PRESETS = {c.name: c for c in (CARTPOLE, PONG, BREAKOUT)}
+# The transformer temporal core on Pong shapes (JAX configs.py:816-837).
+PONG_TRANSFORMER = ExperimentConfig(
+    name="pong_transformer",
+    obs_shape=(84, 84, 4),
+    obs_dtype="uint8",
+    num_actions=6,
+    model="shallow_cnn",
+    compute_dtype="bfloat16",
+    core="transformer",
+    transformer_d_model=256,
+    transformer_layers=2,
+    transformer_heads=4,
+    transformer_window=128,
+    actor_mode="process",
+    num_actors=32,
+    unroll_length=20,
+    batch_size=32,
+    total_env_frames=200_000_000,
+)
+
+PRESETS = {c.name: c for c in (CARTPOLE, PONG, BREAKOUT, PONG_TRANSFORMER)}
+
+# 'auto' attention crossover: the learner's unroll takes the CUDA kernels
+# when its score matrix (T+1) x (W+T+1) reaches this many elements.
+# chip_smoke.py's attention phase times fwd + bwd of the kernels against
+# the einsum branch on an NVIDIA H100 80GB HBM3 (700 W), f32, H = 4,
+# dh = 64, W = 128, in three runs: at B = 32, T = 21 (the pong_transformer
+# learner, 3,129 elements) 1.21-1.38 ms against 2.14-2.55 ms, at B = 2,
+# T = 1024 (1,179,648) 1.30-1.68 ms against 2.03-2.79 ms. The kernels won
+# at both, so the threshold sits at the smaller; no smaller shape was
+# measured.
+KERNEL_MIN_SCORE_ELEMS = 21 * 149
+
+
+def resolve_dense_kernel(cfg: ExperimentConfig) -> str:
+    """'kernel' or 'einsum' for the transformer core's learner unroll;
+    'auto' takes the kernel on a CUDA host when the learner's score
+    matrix reaches KERNEL_MIN_SCORE_ELEMS (the JAX rule's form, with the
+    card's own threshold)."""
+    choice = cfg.transformer_dense_kernel
+    if choice not in ("auto", "kernel", "einsum"):
+        raise ValueError(
+            f"unknown transformer_dense_kernel {choice!r}; "
+            "expected 'auto', 'kernel' or 'einsum'"
+        )
+    if choice != "auto":
+        return choice
+    t_learner = cfg.unroll_length + 1
+    score_elems = t_learner * (cfg.transformer_window + t_learner)
+    if torch.cuda.is_available() and score_elems >= KERNEL_MIN_SCORE_ELEMS:
+        return "kernel"
+    return "einsum"
 
 
 def make_agent(cfg: ExperimentConfig, seed: int = 0) -> Agent:
@@ -132,12 +200,26 @@ def make_agent(cfg: ExperimentConfig, seed: int = 0) -> Agent:
         )
     else:
         raise ValueError(f"unknown model {cfg.model!r}")
+    core = cfg.core
+    if core == "auto":
+        core = "lstm" if cfg.use_lstm else "none"
+    transformer = None
+    if core == "transformer":
+        transformer = dict(
+            d_model=cfg.transformer_d_model,
+            num_layers=cfg.transformer_layers,
+            num_heads=cfg.transformer_heads,
+            window=cfg.transformer_window,
+            dense_kernel=resolve_dense_kernel(cfg),
+            dtype=cfg.transformer_dtype,
+        )
     net = ImpalaNet(
         cfg.num_actions,
         torso,
-        core="lstm" if cfg.use_lstm else "none",
+        core=core,
         lstm_size=cfg.lstm_size,
         generator=g,
+        transformer=transformer,
     )
     return Agent(net)
 
@@ -151,6 +233,7 @@ def make_learner_config(cfg: ExperimentConfig) -> LearnerConfig:
             vf_coef=cfg.vf_coef,
             entropy_coef=cfg.entropy_coef,
             reduction=cfg.loss_reduction,
+            fused_epilogue=cfg.fused_epilogue,
         ),
         max_grad_norm=cfg.max_grad_norm,
     )

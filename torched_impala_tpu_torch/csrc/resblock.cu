@@ -168,9 +168,14 @@ int launch(const void* x, const float* k1, const float* b1, const float* k2,
   const long smem = smem_for(R);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
+    // The attribute is the kernel's, shared by every host thread: the
+    // learner and the actors launch at different shapes at once. Each
+    // sets the same ceiling, so no thread can lower it under another's
+    // launch (setting it to this call's smem did: a launch between
+    // another thread's smaller setting and its own was refused).
     cudaError_t err = cudaFuncSetAttribute(
         resblock_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kMaxSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid((H + R - 1) / R, N);

@@ -15,7 +15,11 @@ the mapping is by path: `torso/Conv_0/kernel` -> `torso.Conv_0.weight`.
 - the LSTM's eight flax `DenseParams` (`lstm/{ii,if,ig,io}/kernel`,
   `lstm/{hi,hf,hg,ho}/{kernel,bias}`) are concatenated along the last
   axis in gate order (i, f, g, o) into `lstm.wi`, `lstm.wh`, `lstm.b`,
-  as the JAX `PallasLSTMCell` concatenates them (models/lstm.py).
+  as the JAX `PallasLSTMCell` concatenates them (models/lstm.py);
+- the transformer core's tree maps by path as it is
+  (`transformer/block_0/q_proj/kernel` -> `transformer.block_0.q_proj.weight`,
+  `transformer/ln_kv_1/scale` -> `transformer.ln_kv_1.weight`): a flax
+  LayerNorm's `scale` is torch's `weight`.
 """
 
 from __future__ import annotations
@@ -65,7 +69,7 @@ def params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     state = _lstm_params(tree.pop("lstm")) if "lstm" in tree else {}
     for path, leaf in _flatten(tree).items():
         module, kind = ".".join(path[:-1]), path[-1]
-        if kind == "bias":
+        if kind in ("bias", "scale"):
             value = leaf
         elif kind == "kernel" and leaf.ndim == 4:
             value = leaf.transpose(3, 2, 0, 1)  # HWIO -> OIHW
@@ -76,6 +80,6 @@ def params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
                 f"params_from_jax: no mapping for {'/'.join(path)} "
                 f"with shape {leaf.shape}"
             )
-        name = "weight" if kind == "kernel" else "bias"
+        name = "bias" if kind == "bias" else "weight"
         state[f"{module}.{name}"] = _tensor(value)
     return state

@@ -1,19 +1,21 @@
-"""ImpalaNet: torso + optional LSTM reset core + policy/value heads
+"""ImpalaNet: torso + optional temporal core + policy/value heads
 (counterpart of `torched_impala_tpu/models/nets.py:ImpalaNet` with
-`core="none"` or `core="lstm"`, `lstm_impl="fused"`).
+`core="none"`, `core="lstm"` (`lstm_impl="fused"`) or
+`core="transformer"`).
 
 Two modes share the params:
 - step:   obs `[B, ...]`, first `[B]` for actors;
 - unroll: obs `[T, B, ...]`, first `[T, B]`, time-major, for the learner;
   the torso runs once over the flattened `[T*B, ...]` batch, the LSTM
-  core once per step in a Python loop.
+  core once per step in a Python loop, the transformer core once over
+  the whole unroll (step mode is its T = 1 unroll).
 
 The LSTM core runs in float32 (a bf16 torso's features are cast up) and
 zeroes the carry rows where `first` is set before each cell step: the
-`hk.ResetCore` semantics of the JAX `_core_step`. The heads always run
-in float32; the value head is one wide (PopArt's per-task width is not
-ported yet). The transformer core is not ported yet and raises.
-"""
+`hk.ResetCore` semantics of the JAX `_core_step`. The transformer core
+(models/transformer.py) resets by segment ids instead and carries a KV
+cache. The heads always run in float32; the value head is one wide
+(PopArt's per-task width is not ported yet)."""
 
 from __future__ import annotations
 
@@ -24,8 +26,11 @@ from torch import nn
 
 from torched_impala_tpu_torch.models.lstm import LSTMCell
 from torched_impala_tpu_torch.models.torsos import init_dense_
+from torched_impala_tpu_torch.models.transformer import TransformerCore
 
-NetState = Any  # (c, h) for the LSTM core, () for feedforward nets.
+# (c, h) for the LSTM core, a TransformerCoreState for the transformer
+# core, () for feedforward nets.
+NetState = Any
 
 
 class NetOutput(NamedTuple):
@@ -49,13 +54,13 @@ class ImpalaNet(nn.Module):
         core: str = "none",
         lstm_size: int = 256,
         generator: Optional[torch.Generator] = None,
+        transformer: Optional[dict] = None,
     ) -> None:
+        """`transformer`: `TransformerCore` keyword arguments, used when
+        core="transformer"."""
         super().__init__()
-        if core not in ("none", "lstm"):
-            raise NotImplementedError(
-                f"core={core!r} is not ported yet (ROADMAP.md queue 2: the "
-                "transformer core and its attention kernels)"
-            )
+        if core not in ("none", "lstm", "transformer"):
+            raise ValueError(f"unknown core {core!r}")
         self.num_actions = num_actions
         self.core = core
         self.torso = torso
@@ -63,18 +68,25 @@ class ImpalaNet(nn.Module):
         if core == "lstm":
             self.lstm = LSTMCell(features, lstm_size, generator)
             features = lstm_size
+        elif core == "transformer":
+            self.transformer = TransformerCore(
+                features, **(transformer or {}), generator=generator
+            )
+            features = self.transformer.d_model
         self.policy_head = nn.Linear(features, num_actions)
         self.value_head = nn.Linear(features, 1)
         init_dense_(self.policy_head, generator)
         init_dense_(self.value_head, generator)
 
     def initial_state(self, batch_size: int) -> NetState:
-        """Zero carry `(c, h)`, each f32 `[B, lstm_size]` on the net's
-        device, or () without a core."""
+        """Zero carry `(c, h)`, each f32 `[B, lstm_size]`, or a fresh
+        `TransformerCoreState`, on the net's device; () without a core."""
+        device = self.policy_head.weight.device
         if self.core == "none":
             return ()
+        if self.core == "transformer":
+            return self.transformer.initial_state(batch_size, device)
         shape = (batch_size, self.lstm.hidden_size)
-        device = self.policy_head.weight.device
         return tuple(torch.zeros(shape, device=device) for _ in range(2))
 
     def forward(
@@ -105,6 +117,12 @@ class ImpalaNet(nn.Module):
                 core_out = torch.stack(outs)
             else:
                 state, core_out = self.lstm(_reset_carry(state, first), core_out)
+        elif self.core == "transformer":
+            if unroll:
+                core_out, state = self.transformer(features, first, state)
+            else:
+                core_out, state = self.transformer(features[None], first[None], state)
+                core_out = core_out[0]
         out = NetOutput(
             policy_logits=self.policy_head(core_out),
             values=self.value_head(core_out),

@@ -5,7 +5,9 @@ path: loss = pg + vf_coef * baseline + entropy_coef * (negative entropy),
 summed (or averaged) over the `[T, B]` unroll with a validity mask, where
 `baseline_loss` carries its own 0.5 factor. V-trace runs on the inputs'
 device (`ops/vtrace.py:vtrace`): the CUDA kernel on the card, the plain
-version on the CPU. Every reduction is float32 (ops/precision.py).
+version on the CPU. `fused_epilogue=True` routes to the fused path
+(`ops/fused_loss.py:fused_vtrace_loss`, same contract and logs). Every
+reduction is float32 (ops/precision.py).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Mapping, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from torched_impala_tpu_torch.ops.fused_loss import fused_vtrace_loss
 from torched_impala_tpu_torch.ops.vtrace import vtrace
 
 
@@ -33,9 +36,12 @@ class ImpalaLossConfig:
     lambda_: float = 1.0
     # 'sum' over [T, B] (the reference); 'mean' over the valid steps.
     reduction: str = "sum"
-    # Not ported yet (ROADMAP.md queue 2 item 1, queue 1 item 7); True raises.
+    # V-trace and the loss sums in one kernel (ops/fused_loss.py).
     fused_epilogue: bool = False
+    # Not ported yet (ROADMAP.md queue 1 item 7): True raises, and so does
+    # a train_dtype other than float32.
     health_diagnostics: bool = False
+    train_dtype: str = "float32"
 
 
 class LossOutput(NamedTuple):
@@ -138,14 +144,26 @@ def impala_loss(
       rewards, discounts: `[T, B]`; discounts are `gamma * (1 - done)`.
       mask: `[T, B]` validity mask, ones by default.
     """
-    if config.fused_epilogue:
-        raise NotImplementedError(
-            "fused_epilogue is not ported yet (ROADMAP.md queue 2, item 1: "
-            "fused_vtrace_loss)"
-        )
     if config.health_diagnostics:
         raise NotImplementedError(
             "health_diagnostics is not ported yet (ROADMAP.md queue 1, item 7)"
+        )
+    if config.fused_epilogue:
+        return fused_vtrace_loss(
+            target_logits=target_logits,
+            behaviour_logits=behaviour_logits,
+            values=values,
+            bootstrap_value=bootstrap_value,
+            actions=actions,
+            rewards=rewards,
+            discounts=discounts,
+            mask=mask,
+            config=config,
+        )
+    if config.train_dtype != "float32":
+        raise NotImplementedError(
+            f"train_dtype={config.train_dtype!r} is not ported yet "
+            "(ROADMAP.md queue 1, item 7)"
         )
     if mask is None:
         mask = torch.ones_like(rewards)

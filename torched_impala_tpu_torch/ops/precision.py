@@ -1,8 +1,9 @@
 """Mixed-precision policy of the port (counterpart of
 `torched_impala_tpu/ops/precision.py`, cut to the roles this slice has).
 
-Compute may run in bfloat16 only in the torso. Every accumulator stays
-float32 whatever the compute dtype:
+Compute may run in bfloat16 only in the torso and, by choice
+(`transformer_dtype`), in the transformer core's matmuls. Every
+accumulator stays float32 whatever the compute dtype:
 
 - the V-trace recursion (its reverse-time products compound rounding);
 - the loss reductions over `[T, B]`;
@@ -20,10 +21,11 @@ import torch
 
 
 def compute_dtype(name: str) -> torch.dtype:
-    """The torso's compute dtype: float32 or bfloat16, nothing else."""
+    """A compute dtype (the torso's, the transformer core's): float32 or
+    bfloat16, nothing else."""
     if name not in ("float32", "bfloat16"):
         raise ValueError(
-            f"torso compute dtype must be 'float32' or 'bfloat16', got {name!r}"
+            f"compute dtype must be 'float32' or 'bfloat16', got {name!r}"
         )
     return getattr(torch, name)
 

@@ -7,6 +7,9 @@ train mode with thread actors and fake envs only).
     python -m torched_impala_tpu_torch.run --config breakout --fake-envs \\
         --actor-mode thread --num-actors 4 --envs-per-actor 8 \\
         --total-steps 100 [--fused-conv] [--device cpu]
+    python -m torched_impala_tpu_torch.run --config pong_transformer \\
+        --fake-envs --actor-mode thread --num-actors 4 --envs-per-actor 8 \\
+        --total-steps 100 [--fused-epilogue] [--device cpu]
 
 The default device is the CUDA card; without one the run fails unless
 `--device cpu` is given.
@@ -31,6 +34,10 @@ CPU_EXAMPLE = (
     "--device cpu"
 )
 BREAKOUT_CPU_EXAMPLE = CPU_EXAMPLE.replace("--config pong", "--config breakout")
+PONG_TRANSFORMER_CPU_EXAMPLE = (
+    CPU_EXAMPLE.replace("--config pong", "--config pong_transformer")
+    + " --fused-epilogue"
+)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -48,6 +55,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--fused-conv", action="store_true",
                    help="residual blocks through the fused block kernel "
                    "(deep_resnet only)")
+    p.add_argument("--fused-epilogue", action="store_true",
+                   help="V-trace and the loss sums in one kernel "
+                   "(ops/fused_loss.py)")
+    p.add_argument("--transformer-dtype", choices=("float32", "bfloat16"),
+                   default=None,
+                   help="the transformer core's matmul compute dtype")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="'cuda' (default) or 'cpu'")
@@ -63,6 +76,8 @@ def build_config(args: argparse.Namespace) -> configs.ExperimentConfig:
         "batch_size": args.batch_size,
         "unroll_length": args.unroll_length,
         "fused_conv": args.fused_conv or None,
+        "fused_epilogue": args.fused_epilogue or None,
+        "transformer_dtype": args.transformer_dtype,
     }
     cfg = configs.PRESETS[args.config]
     return dataclasses.replace(

@@ -8,7 +8,8 @@ the learner's device and hands it over through a bounded queue (double
 buffering). `step_once` takes one batch and one SGD step:
 
     unroll the net over [T+1, B] from the batch's start state ->
-    impala_loss (V-trace on the device: the CUDA kernel on the card) ->
+    impala_loss (V-trace on the device: the CUDA kernel on the card; with
+    fused_epilogue, the fused V-trace + loss-sums kernel instead) ->
     backward -> global-norm clip
     scale = min(1, max_grad_norm / (||g|| + 1e-8)) -> RMSProp
 
@@ -33,7 +34,7 @@ from torched_impala_tpu_torch.ops import precision
 from torched_impala_tpu_torch.ops.losses import ImpalaLossConfig, impala_loss
 from torched_impala_tpu_torch.optim import RMSProp
 from torched_impala_tpu_torch.runtime.param_store import ParamStore
-from torched_impala_tpu_torch.runtime.types import QueueClosed, Trajectory
+from torched_impala_tpu_torch.runtime.types import QueueClosed, Trajectory, map_state
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,7 +50,8 @@ class LearnerConfig:
 
 def stack_trajectories(trajs: list[Trajectory]) -> Trajectory:
     """Stack B unrolls into one time-major batch: leaves `[T(+1), B, ...]`;
-    the agent_state leaves (`[1, H]` each) concatenate on axis 0."""
+    the agent_state leaves (batch 1 each) concatenate on axis 0, keeping
+    the state's type."""
     return Trajectory(
         obs=np.stack([t.obs for t in trajs], axis=1),
         first=np.stack([t.first for t in trajs], axis=1),
@@ -57,9 +59,9 @@ def stack_trajectories(trajs: list[Trajectory]) -> Trajectory:
         behaviour_logits=np.stack([t.behaviour_logits for t in trajs], axis=1),
         rewards=np.stack([t.rewards for t in trajs], axis=1),
         cont=np.stack([t.cont for t in trajs], axis=1),
-        agent_state=tuple(
-            np.concatenate(leaves, axis=0)
-            for leaves in zip(*(t.agent_state for t in trajs))
+        agent_state=map_state(
+            lambda *leaves: np.concatenate(leaves, axis=0),
+            *(t.agent_state for t in trajs),
         ),
         actor_id=-1,
         param_version=min(t.param_version for t in trajs),
@@ -153,7 +155,7 @@ class Learner:
             put(batch.behaviour_logits),
             put(batch.rewards),
             put(batch.cont),
-            tuple(put(x) for x in batch.agent_state),
+            map_state(put, batch.agent_state),
         )
 
     def _batcher_loop(self) -> None:

@@ -4,8 +4,8 @@
 `train()` builds the learner on `device`, starts `num_actors` actor
 threads that each step `envs_per_actor` envs with batched inference on
 the same device, and runs the learner for `total_steps` updates. There is
-no actor supervisor yet: the first actor error stops the run and is
-raised.
+no actor supervisor yet: an actor's error is raised, at once when the
+learner starves for batches, else when the run ends.
 """
 
 from __future__ import annotations
@@ -130,6 +130,8 @@ def train(
         for th in threads:
             th.join(timeout=30.0)
         learner.join()
+    # An actor that failed while the others kept the learner fed.
+    watchdog()
     with returns_lock:
         returns = list(episode_returns)
     return TrainResult(

@@ -8,7 +8,7 @@ step, and the recurrent state the unroll started from.
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 
@@ -28,9 +28,11 @@ class Trajectory(NamedTuple):
       rewards: float32 `[T]` rewards following each action.
       cont: float32 `[T]` continuation flags (1 - done); the learner
         multiplies by gamma to get the discounts.
-      agent_state: recurrent state at obs[0]: `(c [1, H], h [1, H])`
-        float32 for the LSTM core, () for feedforward nets. A stacked
-        batch holds `(c [B, H], h [B, H])`.
+      agent_state: recurrent state at obs[0] with a batch of 1:
+        `(c [1, H], h [1, H])` float32 for the LSTM core, a
+        `TransformerCoreState` (KV cache f32, segments and positions
+        int32) for the transformer core, () for feedforward nets. A
+        stacked batch holds B rows of each leaf.
       actor_id: which actor produced this unroll.
       param_version: frame-count stamp of the params used to act.
     """
@@ -44,3 +46,13 @@ class Trajectory(NamedTuple):
     agent_state: Any
     actor_id: int = 0
     param_version: int = 0
+
+
+def map_state(fn: Callable, *states) -> Any:
+    """`fn` applied leaf by leaf over recurrent states of one structure (a
+    tuple, or a NamedTuple such as `TransformerCoreState`, whose type is
+    kept)."""
+    leaves = [fn(*xs) for xs in zip(*states)]
+    if hasattr(states[0], "_fields"):
+        return type(states[0])(*leaves)
+    return tuple(leaves)

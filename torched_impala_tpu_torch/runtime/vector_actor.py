@@ -27,7 +27,7 @@ import torch
 
 from torched_impala_tpu_torch.models.agent import Agent
 from torched_impala_tpu_torch.runtime.param_store import ParamStore
-from torched_impala_tpu_torch.runtime.types import QueueClosed, Trajectory
+from torched_impala_tpu_torch.runtime.types import QueueClosed, Trajectory, map_state
 
 
 class VectorActor:
@@ -91,10 +91,10 @@ class VectorActor:
         rewards = np.empty((T, E), np.float32)
         cont = np.empty((T, E), np.float32)
         logits_buf = None
-        # The carry at obs[0], on the host once per unroll: trajectory i
-        # gets its own rows [i:i+1] (np.array copies, so no later step
-        # can alias it).
-        start_state = tuple(np.array(x.cpu()) for x in self._state)
+        # The carry (or KV cache) at obs[0], on the host once per unroll:
+        # trajectory i gets its own rows [i:i+1] of every leaf (np.array
+        # copies, so no later step can alias it).
+        start_state = map_state(lambda x: np.array(x.cpu()), self._state)
         for t in range(T):
             obs_buf[t] = self._obs
             first_buf[t] = self._first
@@ -140,7 +140,7 @@ class VectorActor:
                 behaviour_logits=logits_buf[:, i],
                 rewards=rewards[:, i],
                 cont=cont[:, i],
-                agent_state=tuple(x[i : i + 1] for x in start_state),
+                agent_state=map_state(lambda x: x[i : i + 1], start_state),
                 actor_id=self._id,
                 param_version=param_version,
             )
