@@ -21,13 +21,16 @@ non-zero (no phase's failure is caught):
    order), gradients through the autograd.Function with the kernel's
    forward against the plain forward's (rtol 1e-4, atol 1e-5); times,
    bound and the `torch.lstm_cell` time at the learner's shape.
-5. resblock: the residual-block kernel against its plain version at the
-   three Breakout block shapes with N = 672 (the learner's 21 x 32
-   images) and N = 8 (one actor) in bf16 (one bf16 rounding apart,
-   rtol = atol = 2^-7, 99% of elements equal), and ragged f32 shapes
-   (1e-5); gradients through the autograd.Function (rtol 1e-4, atol
-   1e-5 x the gradient's largest magnitude); times, bound and the cuDNN
-   baseline (two F.conv2d calls with the relus and the add).
+5. resblock: the bf16 kernel's machine code holds `HGMMA` (wgmma)
+   instructions (`cuobjdump -sass`; the phase fails on none); the
+   residual-block kernels against their plain version at the three
+   Breakout block shapes with N = 672 (the learner's 21 x 32 images)
+   and N = 8 (one actor) in bf16, and at C = 24 and C = 1 (zero-padded
+   channels), one bf16 rounding apart (rtol = atol = 2^-7, 99% of
+   elements equal), and ragged f32 shapes (1e-5); gradients through the
+   autograd.Function (rtol 1e-4, atol 1e-5 x the gradient's largest
+   magnitude); times at the learner's and the actor's shapes, bound and
+   the cuDNN baseline (two F.conv2d calls with the relus and the add).
 6. fused_loss: the fused V-trace loss kernel against its plain version
    at (T, B, A) = (20, 32, 6), (100, 32, 15), (1, 1, 2), (7, 130, 4) x
    the three threshold sets x lambda, with a mask with zeros (vs and the
@@ -77,6 +80,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -99,8 +103,12 @@ PROFILED_STEPS = 8
 LSTM_SHAPES = [(32, 256, 256), (8, 256, 256), (1, 7, 7), (33, 100, 130)]  # B, F, H
 LSTM_ATOL = 5e-5
 # (N, H, W, C): the learner's three block shapes (21 x 32 images), then
-# one actor's largest (8 envs).
-BLOCK_SHAPES = [(672, 42, 42, 16), (672, 21, 21, 32), (672, 11, 11, 32), (8, 42, 42, 16)]
+# one actor's (8 envs); all are timed, the learner's are the kernels
+# line's sums.
+BLOCK_LEARNER_SHAPES = [(672, 42, 42, 16), (672, 21, 21, 32), (672, 11, 11, 32)]
+BLOCK_SHAPES = BLOCK_LEARNER_SHAPES + [(8, 42, 42, 16), (8, 21, 21, 32), (8, 11, 11, 32)]
+# Channel counts the bf16 kernel zero-pads (to 32 and 16).
+BLOCK_BF16_PADDED_SHAPES = [(3, 13, 7, 24), (2, 13, 21, 1)]
 BLOCK_F32_SHAPES = [(3, 13, 7, 24), (2, 42, 42, 16), (1, 1, 1, 1)]
 BF16_ULP = 2.0**-7
 FUSED_SHAPES = [(20, 32, 6), (100, 32, 15), (1, 1, 2), (7, 130, 4)]  # T, B, A
@@ -442,7 +450,7 @@ def phase_resblock(device):
     import torch
     import torch.nn.functional as F
 
-    from torched_impala_tpu_torch.ops import conv_block, conv_block_cuda
+    from torched_impala_tpu_torch.ops import _build, conv_block, conv_block_cuda
 
     def inputs(N, H, W, C, dtype, seed):
         rng = np.random.default_rng(seed)
@@ -457,13 +465,24 @@ def phase_resblock(device):
             torch.from_numpy(a.astype(np.float32)).to(device) for a in params
         ]
 
-    per_shape, equal_share = {}, {}
-    for shape in BLOCK_SHAPES:
+    # The bf16 kernel's products run on the tensor cores: count the wgmma
+    # instructions (HGMMA in SASS) in each of its instantiations.
+    hgmma = {}
+    for function, count in _build.sass_counts("resblock", "HGMMA").items():
+        match = re.search(r"resblock_bf16_wgmma_kernelILi(\d+)E", function)
+        if match:
+            hgmma[f"resblock_bf16_wgmma_kernel<{match.group(1)}>"] = count
+    if not hgmma or min(hgmma.values()) == 0:
+        raise AssertionError(f"resblock: bf16 kernels without HGMMA instructions: {hgmma}")
+
+    per_shape, equal_share, plans = {}, {}, {}
+    for shape in BLOCK_SHAPES + BLOCK_BF16_PADDED_SHAPES:
         args = inputs(*shape, torch.bfloat16, seed=shape[1])
         out = conv_block_cuda.resblock_cuda(*args)
         ref = conv_block.block_reference(*args)
         torch.cuda.synchronize()
         key = "x".join(map(str, shape))
+        plans[key] = dataclasses.asdict(conv_block_cuda.bf16_launch_plan(*shape))
         per_shape[key] = float((out.float() - ref.float()).abs().max())
         equal_share[key] = float((out == ref).float().mean())
         torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_ULP, atol=BF16_ULP)
@@ -496,9 +515,9 @@ def phase_resblock(device):
         out = F.conv2d(F.relu(x_nchw), w1, b1, padding=1)
         return x_nchw + F.conv2d(F.relu(out), w2, b2, padding=1)
 
-    times = {}
+    times, device_times = {}, []
     totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes=0, ops=0)
-    for shape in BLOCK_SHAPES[:3]:
+    for shape in BLOCK_SHAPES:
         N, H, W, C = shape
         args = inputs(*shape, torch.bfloat16, seed=7)
         x, k1, b1, k2, b2 = args
@@ -510,8 +529,9 @@ def phase_resblock(device):
         plain_ms = time_cuda(lambda: conv_block.block_reference(*args), iters=50, warmup=5)
         library_ms = time_cuda(lambda: library_block(*lib_args), iters=50, warmup=5)
         device_us, _ = profiled_device_us(
-            lambda: conv_block_cuda.resblock_cuda(*args), calls=20, name="resblock_kernel"
+            lambda: conv_block_cuda.resblock_cuda(*args), calls=20, name="resblock_bf16_wgmma"
         )
+        library_device_us, _ = profiled_device_us(lambda: library_block(*lib_args), calls=20)
         bytes_moved = 2 * N * H * W * C * 2 + 4 * (2 * 9 * C * C + 2 * C)
         # Two convs (2 x 9C multiply-adds per output), two bias adds, two
         # relus and the skip add per output element.
@@ -521,22 +541,32 @@ def phase_resblock(device):
         times[key] = dict(
             kernel_us=kernel_ms * 1e3, kernel_device_us_profiler=device_us,
             plain_us=plain_ms * 1e3, library_us=library_ms * 1e3,
+            library_device_us_profiler=library_device_us,
             bound_us=bound_ms * 1e3, bound_by=bound_by,
         )
+        if shape not in BLOCK_LEARNER_SHAPES:
+            continue
         for k, v in (("ms", kernel_ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
                      ("bound_ms", bound_ms), ("bytes", bytes_moved), ("ops", ops)):
             totals[k] += v
+        device_times.append((device_us, library_device_us))
+    # Profiler device times, kernel and cuDNN pair (None where it saw none).
+    for i, k in enumerate(("device_ms", "library_device_ms")):
+        us = [d[i] for d in device_times]
+        totals[k] = None if None in us else sum(us) / 1e3
     total_bound_by = bound(totals["bytes"], totals["ops"], PEAK_BF16_OPS_PER_S)[1]
     worst = max(per_shape.values())
     emit(
         {
             "phase": "resblock",
+            "hgmma_instructions": hgmma,
+            "bf16_launch_plans": plans,
             "max_abs_err_bf16": worst,
             "max_abs_err_bf16_by_shape": per_shape,
             "equal_share_bf16_by_shape": equal_share,
             "max_abs_err_f32_by_shape": f32_err,
             "grad_max_abs_diff": grad_err,
-            "times_by_learner_shape": times,
+            "times_by_shape": times,
             "sum_over_the_three_learner_shapes": dict(totals, bound_by=total_bound_by),
         }
     )

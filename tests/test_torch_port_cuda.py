@@ -18,7 +18,8 @@ Tolerances, each kernel against its plain version on the same card:
 - Residual block: f32 1e-5 absolute and relative (9 C-term sums in
   another order); bf16 at most one bf16 rounding of the output apart
   (rtol = atol = 2^-7) with 99% of the elements bit-equal, since both
-  round the intermediate and the output to bf16 from f32 sums.
+  round the intermediate and the output to bf16 from f32 sums (the bf16
+  kernel's are tensor-core sums, the plain version's cuDNN's).
 - Gradients through the kernels' `autograd.Function`s: the backward is
   the same plain closed form, fed the kernel's forward; rtol 1e-4 and
   atol 1e-5 (LSTM) or 1e-5 times the gradient's largest magnitude
@@ -251,6 +252,131 @@ def test_resblock_grads_through_kernel_forward(cuda):
     # gradient, a sum over N*H*W positions: atol scales with its magnitude.
     for a, b in zip(g_kernel, g_plain):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * float(b.abs().max()))
+
+
+# Edges of the bf16 kernel's tiling: one image, one row, one column, a
+# 13-wide band, and channel counts it zero-pads (24 -> 32, 1 -> 16) or
+# splits into several wgmma tiles (48: three n16, 64: two n32).
+BLOCK_BF16_EDGES = [
+    (1, 13, 13, 16), (2, 1, 13, 32), (3, 13, 1, 24), (3, 13, 7, 24),
+    (2, 13, 21, 1), (1, 1, 1, 1), (2, 9, 9, 48), (2, 9, 9, 64),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", BLOCK_BF16_EDGES, ids=str)
+def test_resblock_bf16_kernel_edges_match_reference(cuda, shape):
+    from torched_impala_tpu_torch.ops import conv_block, conv_block_cuda
+
+    args = _block_inputs(*shape, torch.bfloat16, seed=sum(shape), device=cuda)
+    before = conv_block_cuda.LAUNCHES
+    out = conv_block_cuda.resblock_cuda(*args)
+    assert conv_block_cuda.LAUNCHES == before + 1
+    ref = conv_block.block_reference(*args)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == shape
+    torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_ULP, atol=BF16_ULP)
+    assert float((out == ref).float().mean()) >= 0.99
+
+
+@pytest.mark.gpu
+def test_resblock_bf16_non_finite_x_stays_where_the_plain_version_puts_it(cuda):
+    """An inf or a NaN in x spreads as in the plain version, and no
+    further: the kernel's zero-padded channels (C = 24 -> 32) must not
+    turn inf x 0 into a NaN that reaches every output channel."""
+    from torched_impala_tpu_torch.ops import conv_block, conv_block_cuda
+
+    x, *params = _block_inputs(2, 9, 9, 24, torch.bfloat16, seed=0, device=cuda)
+    x[0, 3, 3, 5] = float("nan")
+    x[1, 2, 2, 1] = float("inf")
+    out = conv_block_cuda.resblock_cuda(x, *params)
+    ref = conv_block.block_reference(x, *params)
+    torch.cuda.synchronize()
+    assert torch.equal(out.isnan(), ref.isnan()) and torch.equal(out.isinf(), ref.isinf())
+    finite = ref.isfinite()
+    assert 0 < int(finite.sum()) < ref.numel()
+    torch.testing.assert_close(
+        out[finite].float(), ref[finite].float(), rtol=BF16_ULP, atol=BF16_ULP
+    )
+
+
+@pytest.mark.gpu
+def test_resblock_bf16_concurrent_learner_and_actor_launches(cuda):
+    """The learner and an actor launch the kernel at different shapes at
+    once, each needing more than 48 KB of shared memory: no launch is
+    refused, and every output is its plain version's (and the same each
+    time)."""
+    import threading
+
+    from torched_impala_tpu_torch.ops import conv_block, conv_block_cuda
+
+    cases = [
+        _block_inputs(672, 21, 21, 32, torch.bfloat16, 1, cuda),
+        _block_inputs(8, 21, 21, 32, torch.bfloat16, 2, cuda),
+    ]
+    refs = [conv_block.block_reference(*args) for args in cases]
+    torch.cuda.synchronize()
+    outs, errors = [[], []], []
+    start = threading.Barrier(len(cases))
+
+    def launch(i):
+        try:
+            start.wait()
+            for _ in range(50):
+                outs[i].append(conv_block_cuda.resblock_cuda(*cases[i]))
+            torch.cuda.synchronize()
+        except Exception as e:  # raised again below, in the test's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=launch, args=(i,)) for i in range(len(cases))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    for ref, runs in zip(refs, outs):
+        assert len(runs) == 50
+        torch.testing.assert_close(runs[0].float(), ref.float(), rtol=BF16_ULP, atol=BF16_ULP)
+        assert float((runs[0] == ref).float().mean()) >= 0.99
+        for out in runs[1:]:
+            assert torch.equal(out, runs[0])
+
+
+@pytest.mark.gpu
+def test_resblock_bf16_refuses_what_it_does_not_take(cuda, monkeypatch):
+    """No fallback for bf16: a C the kernel does not hold raises, and a
+    launch the launcher refuses (a plan whose shared memory is not the
+    kernel's own) raises without counting a launch."""
+    import dataclasses
+
+    from torched_impala_tpu_torch.ops import conv_block_cuda
+
+    with pytest.raises(ValueError, match="C <= 64"):
+        conv_block_cuda.resblock_cuda(*_block_inputs(2, 5, 5, 65, torch.bfloat16, 0, cuda))
+    args = _block_inputs(2, 9, 9, 16, torch.bfloat16, 0, cuda)
+    plan = conv_block_cuda.bf16_launch_plan(2, 9, 9, 16)
+    monkeypatch.setattr(
+        conv_block_cuda,
+        "bf16_launch_plan",
+        lambda *shape: dataclasses.replace(plan, smem_bytes=plan.smem_bytes + 16),
+    )
+    before = conv_block_cuda.LAUNCHES
+    with pytest.raises(RuntimeError, match="cudaError"):
+        conv_block_cuda.resblock_cuda(*args)
+    assert conv_block_cuda.LAUNCHES == before
+
+
+@pytest.mark.gpu
+def test_resblock_bf16_kernel_runs_on_tensor_cores(cuda):
+    """Every instantiation of the bf16 kernel holds wgmma instructions
+    (HGMMA in its machine code); the f32 kernel holds none."""
+    from torched_impala_tpu_torch.ops import _build
+
+    counts = _build.sass_counts("resblock", "HGMMA")
+    bf16 = {f: n for f, n in counts.items() if "resblock_bf16_wgmma_kernel" in f}
+    f32 = {f: n for f, n in counts.items() if "resblock_f32_kernel" in f}
+    assert len(bf16) == 4 and min(bf16.values()) > 0, counts
+    assert len(f32) == 1 and sum(f32.values()) == 0, counts
 
 
 @pytest.mark.gpu

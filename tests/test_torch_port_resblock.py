@@ -18,7 +18,13 @@ Tolerances:
 - ResidualBlock / AtariDeepTorso f32: rtol 1e-5, atol 1e-5; bf16: atol
   3e-2 on features of order 1 (both round at each conv to bf16, with
   f32 sums in another order) and most features equal.
+
+The bf16 CUDA kernel's launch plan (`conv_block_cuda.bf16_launch_plan`)
+is pure Python, so its coverage, shared memory and grid are checked here
+at the Breakout preset's block shapes, for the learner and one actor.
 """
+
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -30,13 +36,14 @@ import torch.nn.functional as F
 from torched_impala_tpu.models.torsos import AtariDeepTorso as JaxDeep
 from torched_impala_tpu.models.torsos import ResidualBlock as JaxBlock
 from torched_impala_tpu.ops.conv_pallas import fused_residual_block as jax_block
+from torched_impala_tpu_torch import configs
 from torched_impala_tpu_torch.models.convert import params_from_jax
 from torched_impala_tpu_torch.models.torsos import (
     AtariDeepTorso,
     ResidualBlock,
     max_pool_same,
 )
-from torched_impala_tpu_torch.ops import conv_block
+from torched_impala_tpu_torch.ops import conv_block, conv_block_cuda
 
 BF16_ULP = 2.0**-7
 SECTIONS = (4, 8, 8)
@@ -223,3 +230,97 @@ def test_symmetric_pool_padding_is_the_hazard(size):
     wrong = wrong.permute(0, 2, 3, 1).numpy()
     assert wrong.shape == want.shape
     assert not np.array_equal(wrong, want)
+
+
+def _breakout_block_shapes():
+    """(H, W, C) of each section's residual blocks in the BREAKOUT preset's
+    deep torso: each section's max-pool halves H and W (SAME, rounding up)."""
+    cfg = configs.BREAKOUT
+    assert cfg.model == "deep_resnet"
+    sections = inspect.signature(AtariDeepTorso).parameters["channel_sections"].default
+    h, w = cfg.obs_shape[:2]
+    shapes = []
+    for c in sections:
+        h, w = -(-h // 2), -(-w // 2)
+        shapes.append((h, w, c))
+    return shapes
+
+
+BREAKOUT_BLOCKS = _breakout_block_shapes()
+# The learner's torso runs over (T + 1) x B images; one actor's over its 8 envs.
+LEARNER_N = (configs.BREAKOUT.unroll_length + 1) * configs.BREAKOUT.batch_size
+ACTOR_N = 8
+
+
+def test_breakout_block_shapes_are_the_kernels_shapes():
+    assert BREAKOUT_BLOCKS == [(42, 42, 16), (21, 21, 32), (11, 11, 32)]
+    assert LEARNER_N == 672
+
+
+@pytest.mark.parametrize("N", [LEARNER_N, ACTOR_N])
+@pytest.mark.parametrize("hwc", BREAKOUT_BLOCKS, ids=str)
+def test_bf16_plan_covers_every_output_row_once(hwc, N):
+    H, W, C = hwc
+    plan = conv_block_cuda.bf16_launch_plan(N, H, W, C)
+    rows = [
+        r
+        for band in range(plan.bands)
+        for r in range(band * plan.rows, min((band + 1) * plan.rows, H))
+    ]
+    assert rows == list(range(H))
+    assert (plan.bands - 1) * plan.rows < H  # no band is empty
+    # Persistent blocks walk the N x bands items: each item once.
+    assert plan.blocks == min(N * plan.bands, conv_block_cuda.RESIDENT * conv_block_cuda.SMS)
+
+
+@pytest.mark.parametrize("N", [LEARNER_N, ACTOR_N])
+@pytest.mark.parametrize("hwc", BREAKOUT_BLOCKS, ids=str)
+def test_bf16_plan_shared_memory_fits(hwc, N):
+    H, W, C = hwc
+    plan = conv_block_cuda.bf16_launch_plan(N, H, W, C)
+    assert plan.channels == C  # 16 and 32 need no padding
+    assert plan.smem_bytes == conv_block_cuda.bf16_smem_bytes(plan.rows, W, C)
+    # Two blocks an SM at the preset's shapes, under the launch ceiling.
+    assert plan.smem_bytes <= conv_block_cuda.SMEM_TARGET <= conv_block_cuda.SMEM_CEILING
+
+
+@pytest.mark.parametrize("N", [LEARNER_N, ACTOR_N])
+@pytest.mark.parametrize("hwc", BREAKOUT_BLOCKS, ids=str)
+def test_bf16_plan_fills_the_card_where_h_allows(hwc, N):
+    H, W, C = hwc
+    plan = conv_block_cuda.bf16_launch_plan(N, H, W, C)
+    assert plan.blocks >= min(conv_block_cuda.SMS, N * H)
+
+
+def test_bf16_plan_learner_and_actor_bands():
+    """The learner's 672 images fill the card with tall bands (few halo
+    rows computed twice); one actor's 8 images need thin ones."""
+    plans = {
+        (N, hwc): conv_block_cuda.bf16_launch_plan(N, *hwc)
+        for N in (LEARNER_N, ACTOR_N)
+        for hwc in BREAKOUT_BLOCKS
+    }
+    assert [plans[LEARNER_N, hwc].rows for hwc in BREAKOUT_BLOCKS] == [21, 21, 11]
+    assert [plans[ACTOR_N, hwc].rows for hwc in BREAKOUT_BLOCKS] == [2, 1, 1]
+    assert plans[ACTOR_N, (11, 11, 32)].blocks == 88  # H = 11 allows no more
+    assert plans[LEARNER_N, (42, 42, 16)].blocks == 264  # two an SM
+
+
+@pytest.mark.parametrize(
+    "shape,channels",
+    [((3, 13, 7, 24), 32), ((2, 13, 21, 1), 16), ((1, 1, 1, 1), 16), ((2, 9, 9, 64), 64)],
+    ids=str,
+)
+def test_bf16_plan_pads_channels_to_a_multiple_of_16(shape, channels):
+    N, H, W, C = shape
+    plan = conv_block_cuda.bf16_launch_plan(N, H, W, C)
+    assert plan.channels == channels
+    assert plan.smem_bytes <= conv_block_cuda.SMEM_CEILING
+    assert plan.rows * plan.bands >= H
+
+
+def test_bf16_plan_refuses_what_does_not_fit():
+    with pytest.raises(ValueError, match="C <= 64"):
+        conv_block_cuda.bf16_launch_plan(2, 9, 9, 65)
+    with pytest.raises(ValueError, match="too wide"):
+        conv_block_cuda.bf16_launch_plan(1, 4, 2000, 64)

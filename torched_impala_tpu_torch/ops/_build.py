@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shutil
 import subprocess
 import threading
 from pathlib import Path
@@ -106,3 +107,22 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build_all([name])[name]))
             _loaded[name] = lib
         return lib
+
+
+def sass_counts(name: str, opcode: str) -> dict[str, int]:
+    """How many `opcode` instructions (e.g. "HGMMA") each function of the
+    built library of kernel `name` holds, by mangled function name."""
+    lib = build_all([name])[name]
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run(
+        [tool, "-sass", str(lib)], capture_output=True, text=True, check=True
+    ).stdout
+    counts: dict[str, int] = {}
+    function = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            function = line.split("Function :", 1)[1].strip()
+            counts[function] = 0
+        elif function is not None and opcode in line:
+            counts[function] += 1
+    return counts

@@ -1,4 +1,4 @@
-"""Wrapper of the hand-written residual-block CUDA kernel (`csrc/resblock.cu`).
+"""Wrapper of the hand-written residual-block CUDA kernels (`csrc/resblock.cu`).
 
 Replaces the Pallas TPU kernel `_block_forward` of
 `torched_impala_tpu/ops/conv_pallas.py` (kernel `_residual_block_kernel`).
@@ -7,16 +7,20 @@ version is `ops/conv_block.py:block_reference`.
 
 The wrapper takes the JAX layout: x NHWC `[N, H, W, C]` contiguous, f32
 or bf16; k1, k2 HWIO `[3, 3, C, C]` and b1, b2 `[C]`, all f32 (the
-kernel rounds the kernels to x's dtype as it stages them). It checks its
-inputs, allocates the output and launches on PyTorch's current stream.
-It has no fallback: a CPU, wrongly typed or non-contiguous tensor, a
-wrong shape, a failed build or a refused launch raises. `LAUNCHES` counts
-the launches this process made.
+kernels round the kernels to x's dtype as they stage them). x's dtype
+picks the kernel: bf16 runs the wgmma implicit GEMM on the tensor cores,
+launched by `bf16_launch_plan`; f32 runs the CUDA-core kernel, whose f32
+products keep the JAX function's f32 numbers. It checks its inputs,
+allocates the output and launches on PyTorch's current stream. It has no
+fallback: a CPU, wrongly typed or non-contiguous tensor, a wrong shape, a
+shape the kernel does not take, a failed build or a refused launch
+raises. `LAUNCHES` counts the launches this process made.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -25,16 +29,77 @@ from torched_impala_tpu_torch.ops._build import check_input
 
 LAUNCHES = 0
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+SMEM_CEILING = 227 * 1024  # bytes a block may use; every launch sets it
+SMEM_TARGET = SMEM_CEILING // 2  # a band small enough for two blocks an SM
+SMS = 132  # H100 SXM streaming multiprocessors
+RESIDENT = 2  # bf16 blocks an SM (the kernel's launch bounds)
+MAX_CHANNELS = 64  # both bf16 kernels [3, 3, C, C] stay in shared memory
+
+_F32_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_BF16_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How the bf16 kernel covers an `[N, H, W, C]` input: `bands` bands
+    of `rows` output rows an image (the last may be shorter), N x bands
+    items walked by `blocks` persistent blocks, `smem_bytes` of shared
+    memory a block, channels padded to `channels`."""
+
+    rows: int
+    bands: int
+    blocks: int
+    smem_bytes: int
+    channels: int
+
+
+def bf16_smem_bytes(rows: int, W: int, channels: int) -> int:
+    """Shared memory of one block at band height `rows` (the layout of
+    `csrc/resblock.cu:bf16_smem_bytes`): both kernels in bf16, both
+    biases in f32, a 16-byte trash row, the input band (rows + 4) x
+    (W + 2) and the intermediate (rows + 2) x (W + 2) in bf16."""
+    weights = 2 * 2 * 9 * channels * channels
+    bands = 2 * (2 * rows + 6) * (W + 2) * channels
+    return weights + 2 * 4 * channels + 16 + bands
+
+
+def bf16_launch_plan(N: int, H: int, W: int, C: int) -> LaunchPlan:
+    """The bf16 kernel's band height, grid and shared memory.
+
+    The tallest band that keeps two blocks on an SM (fewer halo rows
+    computed twice), cut so there are at least `SMS` items where H
+    allows (the actors' N = 8), then evened out over H; one block an item,
+    up to `RESIDENT` blocks an SM. Raises ValueError where C > 64 or a
+    one-row band does not fit."""
+    channels = -(-C // 16) * 16
+    if channels > MAX_CHANNELS:
+        raise ValueError(
+            f"resblock_cuda: bf16 takes C <= {MAX_CHANNELS} (both kernels live "
+            f"in shared memory), got C = {C}"
+        )
+    if bf16_smem_bytes(1, W, channels) > SMEM_CEILING:
+        raise ValueError(f"resblock_cuda: W = {W} is too wide for one band of one row")
+    fit = max(
+        (r for r in range(1, H + 1) if bf16_smem_bytes(r, W, channels) <= SMEM_TARGET),
+        default=1,
+    )
+    rows = min(fit, max(1, H // -(-SMS // N)))
+    bands = -(-H // rows)
+    rows = -(-H // bands)
+    bands = -(-H // rows)
+    blocks = min(N * bands, RESIDENT * SMS)
+    return LaunchPlan(rows, bands, blocks, bf16_smem_bytes(rows, W, channels), channels)
 
 
 def _library() -> ctypes.CDLL:
     lib = _build.load("resblock")
-    fn = lib.resblock_launch
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
+    for fn, argtypes in (
+        (lib.resblock_f32_launch, _F32_ARGTYPES),
+        (lib.resblock_bf16_launch, _BF16_ARGTYPES),
+    ):
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -48,7 +113,9 @@ def resblock_cuda(x, k1, b1, k2, b2):
         )
     N, H, W, C = x.shape
     device = x.device
-    check_input("resblock_cuda", "x", x, (N, H, W, C), tuple(_DTYPE_CODES), device)
+    check_input(
+        "resblock_cuda", "x", x, (N, H, W, C), (torch.float32, torch.bfloat16), device
+    )
     f32 = (torch.float32,)
     for name, t, shape in (
         ("k1", k1, (3, 3, C, C)),
@@ -58,16 +125,17 @@ def resblock_cuda(x, k1, b1, k2, b2):
     ):
         check_input("resblock_cuda", name, t, shape, f32, device)
     out = torch.empty_like(x)
-    rc = _library().resblock_launch(
-        *(t.data_ptr() for t in (x, k1, b1, k2, b2, out)),
-        N,
-        H,
-        W,
-        C,
-        _DTYPE_CODES[x.dtype],
-        device.index,
-        torch.cuda.current_stream(device).cuda_stream,
-    )
+    pointers = [t.data_ptr() for t in (x, k1, b1, k2, b2, out)]
+    stream = torch.cuda.current_stream(device).cuda_stream
+    lib = _library()
+    if x.dtype == torch.bfloat16:
+        plan = bf16_launch_plan(N, H, W, C)
+        rc = lib.resblock_bf16_launch(
+            *pointers, N, H, W, C, plan.rows, plan.smem_bytes, plan.blocks,
+            device.index, stream,
+        )
+    else:
+        rc = lib.resblock_f32_launch(*pointers, N, H, W, C, device.index, stream)
     if rc != 0:
         raise RuntimeError(f"resblock_cuda: kernel launch failed with cudaError {rc}")
     LAUNCHES += 1
