@@ -25,8 +25,8 @@ non-zero (no phase's failure is caught):
    instructions (`cuobjdump -sass`; the phase fails on none); the
    residual-block kernels against their plain version at the three
    Breakout block shapes with N = 672 (the learner's 21 x 32 images)
-   and N = 8 (one actor) in bf16, and at C = 24 and C = 1 (zero-padded
-   channels), one bf16 rounding apart (rtol = atol = 2^-7, 99% of
+   and N = 8 (one actor) in bf16, and at C = 24, C = 1 and C = 72
+   (zero-padded channels), one bf16 rounding apart (rtol = atol = 2^-7, 99% of
    elements equal), and ragged f32 shapes (1e-5); gradients through the
    autograd.Function (rtol 1e-4, atol 1e-5 x the gradient's largest
    magnitude); times at the learner's and the actor's shapes, bound and
@@ -107,8 +107,9 @@ LSTM_ATOL = 5e-5
 # line's sums.
 BLOCK_LEARNER_SHAPES = [(672, 42, 42, 16), (672, 21, 21, 32), (672, 11, 11, 32)]
 BLOCK_SHAPES = BLOCK_LEARNER_SHAPES + [(8, 42, 42, 16), (8, 21, 21, 32), (8, 11, 11, 32)]
-# Channel counts the bf16 kernel zero-pads (to 32 and 16).
-BLOCK_BF16_PADDED_SHAPES = [(3, 13, 7, 24), (2, 13, 21, 1)]
+# Channel counts the bf16 kernel zero-pads (to 32, 16 and 80; at 80 each
+# conv's kernel is staged before that conv).
+BLOCK_BF16_PADDED_SHAPES = [(3, 13, 7, 24), (2, 13, 21, 1), (2, 9, 9, 72)]
 BLOCK_F32_SHAPES = [(3, 13, 7, 24), (2, 42, 42, 16), (1, 1, 1, 1)]
 BF16_ULP = 2.0**-7
 FUSED_SHAPES = [(20, 32, 6), (100, 32, 15), (1, 1, 2), (7, 130, 4)]  # T, B, A

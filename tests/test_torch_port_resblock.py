@@ -270,7 +270,7 @@ def test_bf16_plan_covers_every_output_row_once(hwc, N):
     assert rows == list(range(H))
     assert (plan.bands - 1) * plan.rows < H  # no band is empty
     # Persistent blocks walk the N x bands items: each item once.
-    assert plan.blocks == min(N * plan.bands, conv_block_cuda.RESIDENT * conv_block_cuda.SMS)
+    assert plan.blocks == min(N * plan.bands, plan.resident * conv_block_cuda.SMS)
 
 
 @pytest.mark.parametrize("N", [LEARNER_N, ACTOR_N])
@@ -280,8 +280,11 @@ def test_bf16_plan_shared_memory_fits(hwc, N):
     plan = conv_block_cuda.bf16_launch_plan(N, H, W, C)
     assert plan.channels == C  # 16 and 32 need no padding
     assert plan.smem_bytes == conv_block_cuda.bf16_smem_bytes(plan.rows, W, C)
-    # Two blocks an SM at the preset's shapes, under the launch ceiling.
-    assert plan.smem_bytes <= conv_block_cuda.SMEM_TARGET <= conv_block_cuda.SMEM_CEILING
+    # Two blocks an SM at the preset's shapes, each with the card's
+    # reservation, under the launch ceiling.
+    assert plan.resident == 2
+    assert 2 * (plan.smem_bytes + conv_block_cuda.BLOCK_RESERVED) <= conv_block_cuda.SM_SMEM
+    assert plan.smem_bytes <= conv_block_cuda.SMEM_CEILING
 
 
 @pytest.mark.parametrize("N", [LEARNER_N, ACTOR_N])
@@ -308,7 +311,10 @@ def test_bf16_plan_learner_and_actor_bands():
 
 @pytest.mark.parametrize(
     "shape,channels",
-    [((3, 13, 7, 24), 32), ((2, 13, 21, 1), 16), ((1, 1, 1, 1), 16), ((2, 9, 9, 64), 64)],
+    [
+        ((3, 13, 7, 24), 32), ((2, 13, 21, 1), 16), ((1, 1, 1, 1), 16),
+        ((2, 9, 9, 64), 64), ((2, 9, 9, 72), 80), ((1, 5, 42, 80), 80),
+    ],
     ids=str,
 )
 def test_bf16_plan_pads_channels_to_a_multiple_of_16(shape, channels):
@@ -319,8 +325,51 @@ def test_bf16_plan_pads_channels_to_a_multiple_of_16(shape, channels):
     assert plan.rows * plan.bands >= H
 
 
+# Shapes at and past the limits of residency: bands that only just fit
+# two blocks an SM and one column too wide for two (C = 16: W = 413 / 414,
+# C = 32: W = 151 / 152), C = 64 (its two kernels alone take 144 KB),
+# channels whose two kernels do not fit together (C = 65 .. 80: one conv's
+# kernel at a time), and the widest W at C = 80.
+PLAN_LIMIT_SHAPES = [
+    (672, 42, 42, 16), (8, 21, 21, 32), (1, 2, 413, 16), (1, 2, 414, 16),
+    (2, 30, 151, 32), (2, 30, 152, 32), (2, 9, 9, 64), (2, 9, 9, 72),
+    (672, 11, 11, 80), (3, 7, 42, 65), (1, 3, 89, 80),
+]
+
+
+@pytest.mark.parametrize("shape", PLAN_LIMIT_SHAPES, ids=str)
+def test_bf16_plan_resident_blocks_fit_an_sm(shape):
+    """`resident` blocks, each with the card's 1 KB reservation, fit in
+    one SM's shared memory, so the persistent grid of `resident` x SMS
+    blocks runs in one wave; one block an SM only where two do not fit
+    or the two kernels do not fit together."""
+    N, H, W, C = shape
+    cb = conv_block_cuda
+    plan = cb.bf16_launch_plan(N, H, W, C)
+    assert plan.resident * (plan.smem_bytes + cb.BLOCK_RESERVED) <= cb.SM_SMEM
+    assert plan.smem_bytes <= cb.SMEM_CEILING
+    assert plan.blocks == min(N * plan.bands, plan.resident * cb.SMS)
+    if plan.resident == 1 and plan.channels <= cb.BOTH_KERNELS_CHANNELS:
+        one_row = cb.bf16_smem_bytes(1, W, plan.channels)
+        assert 2 * (one_row + cb.BLOCK_RESERVED) > cb.SM_SMEM
+
+
+@pytest.mark.parametrize(
+    "shape,resident",
+    [
+        ((1, 2, 413, 16), 2), ((1, 2, 414, 16), 1), ((2, 30, 151, 32), 2),
+        ((2, 30, 152, 32), 1), ((2, 9, 9, 64), 1), ((2, 9, 9, 72), 1),
+    ],
+    ids=str,
+)
+def test_bf16_plan_two_blocks_only_where_both_fit(shape, resident):
+    assert conv_block_cuda.bf16_launch_plan(*shape).resident == resident
+
+
 def test_bf16_plan_refuses_what_does_not_fit():
-    with pytest.raises(ValueError, match="C <= 64"):
-        conv_block_cuda.bf16_launch_plan(2, 9, 9, 65)
+    with pytest.raises(ValueError, match="C <= 80"):
+        conv_block_cuda.bf16_launch_plan(2, 9, 9, 81)
     with pytest.raises(ValueError, match="too wide"):
         conv_block_cuda.bf16_launch_plan(1, 4, 2000, 64)
+    with pytest.raises(ValueError, match="too wide"):
+        conv_block_cuda.bf16_launch_plan(1, 3, 90, 80)

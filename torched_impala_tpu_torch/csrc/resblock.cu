@@ -35,22 +35,24 @@
 // the tap's [C, C] slice, is staged once per block in the core-matrix
 // layout the descriptor reads (8 output channels x 8 input channels, 128
 // contiguous bytes; no swizzle). C is zero-padded to CP, a multiple of 16
-// (zeros add exact zeros); CP <= 64 (both kernels must fit in shared
-// memory). Pixels past the band's last one are computed on a clamped
+// (zeros add exact zeros), up to CP = 80. Up to CP = 64 both kernels stay
+// in shared memory and two blocks share an SM; at CP = 80 they do not
+// fit together, so one block an SM stages each conv's kernel before that
+// conv, per item. Pixels past the band's last one are computed on a clamped
 // address and their rows stored to a trash row. Each pixel's 16-byte
 // channel chunks are XOR-swizzled by the pixel index so that the 8 lanes
 // of one `ldmatrix` or `stmatrix` phase hit 8 different bank groups.
 //
-// A block is persistent: it stages both kernels once (f32 -> bf16), then
-// walks (image, band) items. Per item: `cp.async` brings the band of x
+// A block is persistent: it stages both kernels once (f32 -> bf16; at
+// CP = 80 once per item and conv), then walks (image, band) items. Per item: `cp.async` brings the band of x
 // in; conv1's epilogue adds b1, applies the relu and writes y1 with one
 // `stmatrix` per 16 channels; conv2's epilogue reads the skip with one
 // `ldmatrix` in the accumulators' layout, adds b2 and the skip in f32 and
 // writes the bf16 result over the skip in the band; a last pass copies
 // the band's output rows to device memory 16 bytes at a time. The band
-// height R, the grid and the shared memory come from the wrapper's launch
-// plan (ops/conv_block_cuda.py:`bf16_launch_plan`), which the launcher
-// checks against its own layout.
+// height R and the grid come from the wrapper's launch plan
+// (ops/conv_block_cuda.py:`bf16_launch_plan`); the launcher works out the
+// shared memory from its own layout and refuses a band that does not fit.
 //
 // Bound: at the learner's shapes (N = 672 images; H x W x C of 42x42x16,
 // 21x21x32, 11x11x32) the block must read x and write out once, 2 bytes
@@ -221,6 +223,10 @@ struct Shape {
   // nine while the registers allow.
   static constexpr int TAPS = CP <= 32 ? 9 : 3;
   static constexpr int kWeights = 9 * CP * CP;         // elements a kernel
+  // Above CP = 64 the two kernels do not fit in shared memory together:
+  // each is staged before its conv, and one block takes an SM.
+  static constexpr bool kPerConv = CP > 64;
+  static constexpr int kKernels = kPerConv ? 1 : 2;    // kernels in shared memory
 };
 
 // Index, in 16-byte chunks, of chunk `chunk` of band pixel `q`.
@@ -387,20 +393,18 @@ __device__ __forceinline__ void conv_tile(
   }
 }
 
-// Both kernels, HWIO f32 -> bf16 core matrices: (tap, ci / 8, co / 8),
-// row co % 8, column ci % 8; zero past C. A thread takes units of 4
-// output channels, kBatch at a time, so its loads are in flight together.
+// One kernel, HWIO f32 -> bf16 core matrices: (tap, ci / 8, co / 8), row
+// co % 8, column ci % 8; zero past C. A thread takes units of 4 output
+// channels, kBatch at a time, so its loads are in flight together. The
+// caller fences the async proxy (wgmma reads these) before a barrier.
 template <int CP>
-__device__ __forceinline__ void stage_weights(__nv_bfloat16* s_w,
-                                              const float* __restrict__ k1,
-                                              const float* __restrict__ k2,
-                                              int C) {
+__device__ __forceinline__ void stage_kernel(__nv_bfloat16* s_w,
+                                             const float* __restrict__ k,
+                                             int C) {
   using S = Shape<CP>;
-  constexpr int kUnits = 2 * S::kWeights / 4;  // (kernel, tap, ci, co / 4)
+  constexpr int kUnits = S::kWeights / 4;  // (tap, ci, co / 4)
   constexpr int kBatch = 8;
-  const bool vec = C % 4 == 0 &&
-                   (reinterpret_cast<uintptr_t>(k1) |
-                    reinterpret_cast<uintptr_t>(k2)) % 16 == 0;
+  const bool vec = C % 4 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0;
   for (int base = threadIdx.x; base < kUnits; base += kBf16Threads * kBatch) {
     float4 v[kBatch];
 #pragma unroll
@@ -408,10 +412,10 @@ __device__ __forceinline__ void stage_weights(__nv_bfloat16* s_w,
       const int u = base + b * kBf16Threads;
       const int co = 4 * (u % (CP / 4));
       const int ci = (u / (CP / 4)) % CP;
-      const int kt = u / (CP * CP / 4);  // kernel * 9 + tap
+      const int tap = u / (CP * CP / 4);
       v[b] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       if (u >= kUnits || ci >= C || co >= C) continue;
-      const float* src = (kt < 9 ? k1 : k2) + ((kt % 9) * C + ci) * C + co;
+      const float* src = k + (tap * C + ci) * C + co;
       if (vec) {
         v[b] = __ldg(reinterpret_cast<const float4*>(src));
       } else {
@@ -427,10 +431,9 @@ __device__ __forceinline__ void stage_weights(__nv_bfloat16* s_w,
       if (u >= kUnits) break;
       const int co = 4 * (u % (CP / 4));
       const int ci = (u / (CP / 4)) % CP;
-      const int kt = u / (CP * CP / 4);
-      const int core = ((kt % 9) * S::CH + ci / 8) * S::CH + co / 8;
-      __nv_bfloat16* dst =
-          s_w + (kt / 9) * S::kWeights + core * 64 + (co % 8) * 8 + ci % 8;
+      const int tap = u / (CP * CP / 4);
+      const int core = (tap * S::CH + ci / 8) * S::CH + co / 8;
+      __nv_bfloat16* dst = s_w + core * 64 + (co % 8) * 8 + ci % 8;
       dst[0] = __float2bfloat16_rn(v[b].x);
       dst[8] = __float2bfloat16_rn(v[b].y);
       dst[16] = __float2bfloat16_rn(v[b].z);
@@ -439,10 +442,10 @@ __device__ __forceinline__ void stage_weights(__nv_bfloat16* s_w,
   }
 }
 
-// A persistent block: it stages both kernels once, then walks the
-// (image, band) items gridDim.x apart.
+// A persistent block: it stages both kernels once (kPerConv: each before
+// its conv, per item), then walks the (image, band) items gridDim.x apart.
 template <int CP>
-__global__ void __launch_bounds__(kBf16Threads, 2)
+__global__ void __launch_bounds__(kBf16Threads, Shape<CP>::kPerConv ? 1 : 2)
     resblock_bf16_wgmma_kernel(const __nv_bfloat16* __restrict__ x,
                                const float* __restrict__ k1,
                                const float* __restrict__ b1,
@@ -454,21 +457,25 @@ __global__ void __launch_bounds__(kBf16Threads, 2)
   extern __shared__ __align__(128) unsigned char smem_bf16[];
   const int Wp = W + 2;
   const int tid = threadIdx.x;
-  // [k1, k2: 9 taps x CH x CH core matrices of 8 x 8 bf16][b1, b2: CP f32]
+  // [k1, k2 (kPerConv: the current conv's only): 9 taps x CH x CH core
+  // matrices of 8 x 8 bf16][b1, b2: CP f32]
   // [trash: 16 bytes][band: (R + 4) x Wp pixels][y1: (R + 2) x Wp pixels],
   // CH chunks a pixel. stmatrix rows past a band's last pixel go to trash.
   __nv_bfloat16* s_w = reinterpret_cast<__nv_bfloat16*>(smem_bf16);
-  float* s_b = reinterpret_cast<float*>(s_w + 2 * S::kWeights);
+  float* s_b = reinterpret_cast<float*>(s_w + S::kKernels * S::kWeights);
   uint4* s_in = reinterpret_cast<uint4*>(s_b + 2 * CP) + 1;
   uint4* s_y1 = s_in + (R + 4) * Wp * S::CH;
   const uint32_t trash = smem_addr(s_in - 1);
   const uint32_t in_addr = smem_addr(s_in);
   const uint32_t y1_addr = smem_addr(s_y1);
   const uint32_t w1 = smem_addr(s_w);
-  const uint32_t w2 = w1 + 2 * S::kWeights;
+  const uint32_t w2 = w1 + 2 * (S::kKernels - 1) * S::kWeights;
   const bool vec = C % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
 
-  stage_weights<CP>(s_w, k1, k2, C);
+  if (!S::kPerConv) {
+    stage_kernel<CP>(s_w, k1, C);
+    stage_kernel<CP>(s_w + S::kWeights, k2, C);
+  }
   for (int i = tid; i < 2 * CP; i += kBf16Threads) {
     const int co = i % CP;
     s_b[i] = co < C ? (i < CP ? b1 : b2)[co] : 0.0f;
@@ -535,6 +542,12 @@ __global__ void __launch_bounds__(kBf16Threads, 2)
       const int yr = k < ylo ? k : yhi + k - ylo;
       s_y1[yr * Wp * S::CH + i % (Wp * S::CH)] = make_uint4(0, 0, 0, 0);
     }
+    if (S::kPerConv) {
+      // The last item's conv2 is done with the weights (the barrier at
+      // its end).
+      stage_kernel<CP>(s_w, k1, C);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    }
     asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncthreads();
 
@@ -567,6 +580,11 @@ __global__ void __launch_bounds__(kBf16Threads, 2)
       }
     }
     __syncthreads();
+    if (S::kPerConv) {
+      stage_kernel<CP>(s_w, k2, C);  // over k1: conv1 is done with it
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+    }
 
     // conv2 over the band's output rows inside the image: x + (conv2(y1) +
     // b2), with x read from the band (row + 2, column + 1) in the
@@ -622,22 +640,22 @@ __global__ void __launch_bounds__(kBf16Threads, 2)
   }
 }
 
-// Bytes of shared memory the bf16 kernel takes at band height R; the
-// wrapper's launch plan computes the same.
+// Bytes of shared memory the bf16 kernel takes at band height R (the
+// wrapper's launch plan mirrors this to choose R and the blocks an SM).
 template <int CP>
 long bf16_smem_bytes(int R, int W) {
-  return 2L * 2 * Shape<CP>::kWeights + 2L * CP * 4 + 16 +
+  return 2L * Shape<CP>::kKernels * Shape<CP>::kWeights + 2L * CP * 4 + 16 +
          (2L * R + 6) * (W + 2) * CP * 2;
 }
 
 template <int CP>
 int launch_bf16(const __nv_bfloat16* x, const float* k1, const float* b1,
                 const float* k2, const float* b2, __nv_bfloat16* out, int N,
-                int H, int W, int C, int R, long smem, int blocks,
-                cudaStream_t stream) {
+                int H, int W, int C, int R, int blocks, cudaStream_t stream) {
+  if (R < 1 || blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const long smem = bf16_smem_bytes<CP>(R, W);
   const long items = static_cast<long>(N) * ((H + R - 1) / R);
-  if (R < 1 || smem != bf16_smem_bytes<CP>(R, W) || smem > kMaxSmem ||
-      blocks < 1 || items > 0x7FFFFFFFL) {
+  if (smem > kMaxSmem || items > 0x7FFFFFFFL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = allow_smem(resblock_bf16_wgmma_kernel<CP>, smem);
@@ -666,14 +684,13 @@ extern "C" int resblock_f32_launch(const float* x, const float* k1,
                     static_cast<cudaStream_t>(stream));
 }
 
-// x and out bfloat16; R (band height), smem (bytes) and blocks (the
-// persistent grid) from the wrapper's launch plan. Returns
-// cudaErrorInvalidValue when C > 64 or when smem is not this kernel's size
-// at R.
+// x and out bfloat16; R (band height) and blocks (the persistent grid)
+// from the wrapper's launch plan. Returns cudaErrorInvalidValue when C > 80
+// or when a band of R rows does not fit in shared memory.
 extern "C" int resblock_bf16_launch(const void* x, const float* k1,
                                     const float* b1, const float* k2,
                                     const float* b2, void* out, int N, int H,
-                                    int W, int C, int R, int smem, int blocks,
+                                    int W, int C, int R, int blocks,
                                     int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -681,10 +698,11 @@ extern "C" int resblock_bf16_launch(const void* x, const float* k1,
   auto* ob = static_cast<__nv_bfloat16*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((C + 15) / 16 * 16) {
-    case 16: return launch_bf16<16>(xb, k1, b1, k2, b2, ob, N, H, W, C, R, smem, blocks, s);
-    case 32: return launch_bf16<32>(xb, k1, b1, k2, b2, ob, N, H, W, C, R, smem, blocks, s);
-    case 48: return launch_bf16<48>(xb, k1, b1, k2, b2, ob, N, H, W, C, R, smem, blocks, s);
-    case 64: return launch_bf16<64>(xb, k1, b1, k2, b2, ob, N, H, W, C, R, smem, blocks, s);
+    case 16: return launch_bf16<16>(xb, k1, b1, k2, b2, ob, N, H, W, C, R, blocks, s);
+    case 32: return launch_bf16<32>(xb, k1, b1, k2, b2, ob, N, H, W, C, R, blocks, s);
+    case 48: return launch_bf16<48>(xb, k1, b1, k2, b2, ob, N, H, W, C, R, blocks, s);
+    case 64: return launch_bf16<64>(xb, k1, b1, k2, b2, ob, N, H, W, C, R, blocks, s);
+    case 80: return launch_bf16<80>(xb, k1, b1, k2, b2, ob, N, H, W, C, R, blocks, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

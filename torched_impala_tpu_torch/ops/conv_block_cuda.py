@@ -30,35 +30,45 @@ from torched_impala_tpu_torch.ops._build import check_input
 LAUNCHES = 0
 
 SMEM_CEILING = 227 * 1024  # bytes a block may use; every launch sets it
-SMEM_TARGET = SMEM_CEILING // 2  # a band small enough for two blocks an SM
+SM_SMEM = 228 * 1024  # shared memory of one SM
+BLOCK_RESERVED = 1024  # shared memory the card keeps for each resident block
 SMS = 132  # H100 SXM streaming multiprocessors
-RESIDENT = 2  # bf16 blocks an SM (the kernel's launch bounds)
-MAX_CHANNELS = 64  # both bf16 kernels [3, 3, C, C] stay in shared memory
+# Padded channels up to which both bf16 kernels [3, 3, C, C] stay in shared
+# memory and the kernel's launch bounds allow two blocks an SM; above it
+# (up to MAX_CHANNELS) each conv's kernel is staged before that conv and
+# one block takes an SM.
+BOTH_KERNELS_CHANNELS = 64
+MAX_CHANNELS = 80
 
 _F32_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_BF16_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_BF16_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
     """How the bf16 kernel covers an `[N, H, W, C]` input: `bands` bands
     of `rows` output rows an image (the last may be shorter), N x bands
-    items walked by `blocks` persistent blocks, `smem_bytes` of shared
-    memory a block, channels padded to `channels`."""
+    items walked by `blocks` persistent blocks, `resident` of them an SM,
+    `smem_bytes` of shared memory a block, channels padded to
+    `channels`."""
 
     rows: int
     bands: int
     blocks: int
+    resident: int
     smem_bytes: int
     channels: int
 
 
 def bf16_smem_bytes(rows: int, W: int, channels: int) -> int:
-    """Shared memory of one block at band height `rows` (the layout of
-    `csrc/resblock.cu:bf16_smem_bytes`): both kernels in bf16, both
-    biases in f32, a 16-byte trash row, the input band (rows + 4) x
-    (W + 2) and the intermediate (rows + 2) x (W + 2) in bf16."""
-    weights = 2 * 2 * 9 * channels * channels
+    """Shared memory of one block at band height `rows`, as the launcher
+    works it out (`csrc/resblock.cu:bf16_smem_bytes`; the launch passes
+    only `rows` and the grid): both kernels in bf16 (one above
+    `BOTH_KERNELS_CHANNELS`), both biases in f32, a 16-byte trash row,
+    the input band (rows + 4) x (W + 2) and the intermediate
+    (rows + 2) x (W + 2) in bf16."""
+    kernels = 2 if channels <= BOTH_KERNELS_CHANNELS else 1
+    weights = kernels * 2 * 9 * channels * channels
     bands = 2 * (2 * rows + 6) * (W + 2) * channels
     return weights + 2 * 4 * channels + 16 + bands
 
@@ -66,29 +76,37 @@ def bf16_smem_bytes(rows: int, W: int, channels: int) -> int:
 def bf16_launch_plan(N: int, H: int, W: int, C: int) -> LaunchPlan:
     """The bf16 kernel's band height, grid and shared memory.
 
-    The tallest band that keeps two blocks on an SM (fewer halo rows
-    computed twice), cut so there are at least `SMS` items where H
-    allows (the actors' N = 8), then evened out over H; one block an item,
-    up to `RESIDENT` blocks an SM. Raises ValueError where C > 64 or a
-    one-row band does not fit."""
+    As many blocks an SM as the launch bounds allow (two up to
+    `BOTH_KERNELS_CHANNELS`) and a one-row band lets fit, each with the
+    card's `BLOCK_RESERVED`; the tallest band that keeps them there
+    (fewer halo rows computed twice), cut so there are at least `SMS`
+    items where H allows (the actors' N = 8), then evened out over H; one
+    block an item, up to `resident` x `SMS` blocks. Raises ValueError
+    where C > 80 or a one-row band does not fit."""
     channels = -(-C // 16) * 16
     if channels > MAX_CHANNELS:
         raise ValueError(
-            f"resblock_cuda: bf16 takes C <= {MAX_CHANNELS} (both kernels live "
-            f"in shared memory), got C = {C}"
+            f"resblock_cuda: bf16 takes C <= {MAX_CHANNELS} (a conv's kernel "
+            f"lives in shared memory), got C = {C}"
         )
     if bf16_smem_bytes(1, W, channels) > SMEM_CEILING:
         raise ValueError(f"resblock_cuda: W = {W} is too wide for one band of one row")
-    fit = max(
-        (r for r in range(1, H + 1) if bf16_smem_bytes(r, W, channels) <= SMEM_TARGET),
+    most = 2 if channels <= BOTH_KERNELS_CHANNELS else 1
+    resident = max(
+        (k for k in range(1, most + 1)
+         if k * (bf16_smem_bytes(1, W, channels) + BLOCK_RESERVED) <= SM_SMEM),
         default=1,
     )
+    target = min(SMEM_CEILING, SM_SMEM // resident - BLOCK_RESERVED)
+    fit = max(r for r in range(1, H + 1) if bf16_smem_bytes(r, W, channels) <= target)
     rows = min(fit, max(1, H // -(-SMS // N)))
     bands = -(-H // rows)
     rows = -(-H // bands)
     bands = -(-H // rows)
-    blocks = min(N * bands, RESIDENT * SMS)
-    return LaunchPlan(rows, bands, blocks, bf16_smem_bytes(rows, W, channels), channels)
+    blocks = min(N * bands, resident * SMS)
+    return LaunchPlan(
+        rows, bands, blocks, resident, bf16_smem_bytes(rows, W, channels), channels
+    )
 
 
 def _library() -> ctypes.CDLL:
@@ -131,8 +149,7 @@ def resblock_cuda(x, k1, b1, k2, b2):
     if x.dtype == torch.bfloat16:
         plan = bf16_launch_plan(N, H, W, C)
         rc = lib.resblock_bf16_launch(
-            *pointers, N, H, W, C, plan.rows, plan.smem_bytes, plan.blocks,
-            device.index, stream,
+            *pointers, N, H, W, C, plan.rows, plan.blocks, device.index, stream,
         )
     else:
         rc = lib.resblock_f32_launch(*pointers, N, H, W, C, device.index, stream)
