@@ -42,7 +42,8 @@ non-zero (no phase's failure is caught):
    versions at the learner's shape (B=32, T=21, H=4, dh=64, W=128:
    S=149, episodes that reset mid-unroll, a cache partly of an older
    episode or empty), a long one (B=2, T=1024) and ragged ones (T=1 with
-   W=0; dh 16 and 32): f32 forward <= 2e-5 absolute (TF32 off),
+   W=0; dh 16 and 32), and head widths 8 and 128 in f32 and bf16: f32
+   forward <= 2e-5 absolute (TF32 off),
    gradients rtol 1e-4, atol 1e-5 x the largest gradient, bf16 within
    one bf16 rounding; bf16 dtypes through the autograd.Function. Times
    of each kernel and its plain version at the learner and long shapes,
@@ -118,6 +119,10 @@ FUSED_SHAPES = [(20, 32, 6), (100, 32, 15), (1, 1, 2), (7, 130, 4)]  # T, B, A
 ATTN_LEARNER = (32, 21, 4, 64, 128)
 ATTN_LONG = (2, 1024, 4, 64, 128)
 ATTN_RAGGED = [(3, 1, 2, 16, 0), (3, 9, 2, 16, 7), (5, 40, 3, 32, 19)]
+# Head widths beside the learner's 64: dh 8 runs zero-padded to 16, and
+# 128 is the instantiation whose dK/dV arrays first pass 48 KB; each in
+# f32 and bf16.
+ATTN_WIDTHS = [(3, 9, 2, 8, 7), (2, 40, 2, 128, 19)]
 ATTN_F32_ATOL = 2e-5
 PONG_TRANSFORMER_STEPS = 12
 
@@ -814,6 +819,12 @@ def phase_attention(device):
     errors["bf16_" + "x".join(map(str, ATTN_LEARNER))] = kernel_vs_plain(
         attention_inputs(*ATTN_LEARNER, seed=1, device=device, dtype="bfloat16"), bf16=True
     )
+    for shape in ATTN_WIDTHS:
+        label = "x".join(map(str, shape))
+        errors[label] = kernel_vs_plain(attention_inputs(*shape, seed=sum(shape), device=device))
+        errors["bf16_" + label] = kernel_vs_plain(
+            attention_inputs(*shape, seed=sum(shape), device=device, dtype="bfloat16"), bf16=True
+        )
     # Through the autograd.Function: bf16 in, bf16 out and bf16 grads.
     x = attention_inputs(*ATTN_LEARNER, seed=2, device=device, dtype="bfloat16")
     leaves = [x[k].clone().requires_grad_() for k in ("q", "k", "v")]

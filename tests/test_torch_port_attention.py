@@ -4,8 +4,9 @@ Same numpy inputs go through the port's `windowed_attention` on the CPU
 (its plain forward and backward, the kernels' formulas) and through the
 JAX package's `windowed_attention` (Pallas, interpret mode) and its einsum
 reference (tests/test_attention_pallas.py's `reference_attention`), at
-the JAX op tests' shapes: B=3, T=9, H=2, dh=16, W=7; T=1 with W=0; and
-the learner's T=20 with W=128. Forward within rtol = atol = 1e-5; dq, dk
+the JAX op tests' shapes: B=3, T=9, H=2, dh=16, W=7; T=1 with W=0; the
+learner's T=20 with W=128; and the op shape at dh=8 and dh=24, widths
+the CUDA kernels run zero-padded to 16 and 32. Forward within rtol = atol = 1e-5; dq, dk
 and dv of sum(sin(out)) within rtol 1e-4, atol 1e-5 (f32; the sums run
 in another order).
 """
@@ -26,6 +27,8 @@ SHAPES = {  # B, T, H, dh, W
     "op": (3, 9, 2, 16, 7),
     "t1_w0": (3, 1, 2, 16, 0),
     "learner_t20_w128": (2, 20, 2, 16, 128),
+    "op_dh8": (3, 9, 2, 8, 7),
+    "op_dh24": (3, 9, 2, 24, 7),
 }
 
 

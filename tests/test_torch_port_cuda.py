@@ -540,6 +540,30 @@ def test_attention_kernels_match_reference_bf16(cuda):
     )
 
 
+# Head widths the kernels run zero-padded (to 16, 32, 128) and the two
+# widest instantiations (128, 256), at a shape with several row blocks,
+# context tiles and query tiles.
+ATTN_PADDED_DH = [8, 24, 96, 128, 256]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("dh", ATTN_PADDED_DH)
+def test_attention_kernels_match_reference_at_any_head_width(cuda, dh, dtype):
+    from torched_impala_tpu_torch.ops import attention, attention_cuda
+
+    args = _attn_inputs(2, 40, 2, dh, 19, seed=dh, device=cuda, dtype=dtype)
+    q, k, v, seg_q, seg_ctx, W, g = args
+    before = dict(attention_cuda.LAUNCHES)
+    _attention_vs_plain(args, bf16=dtype == torch.bfloat16)
+    assert {k: v - before[k] for k, v in attention_cuda.LAUNCHES.items()} == {"fwd": 1, "dq": 1, "dkv": 1}
+    out, lse = attention_cuda.attention_forward_cuda(q, k, v, seg_q, seg_ctx, W)
+    bwd = (q, k, v, g, lse, attention.row_term(out, g), seg_q, seg_ctx, W)
+    dq = attention_cuda.attention_dq_cuda(*bwd)
+    dk, dv = attention_cuda.attention_dkv_cuda(*bwd)
+    assert out.shape == dq.shape == q.shape and dk.shape == dv.shape == k.shape
+
+
 @pytest.mark.gpu
 def test_attention_autograd_through_kernels(cuda):
     from torched_impala_tpu_torch.ops import attention, attention_cuda
@@ -563,9 +587,9 @@ def test_attention_and_fused_loss_wrappers_refuse_bad_inputs_on_cuda(cuda):
     from torched_impala_tpu_torch.ops import attention_cuda, fused_loss_cuda
 
     q, k, v, seg_q, seg_ctx, W, g = _attn_inputs(2, 5, 2, 16, 3, seed=0, device=cuda)
-    with pytest.raises(ValueError, match="head width"):
-        attention_cuda.attention_forward_cuda(q[..., :8].contiguous(), k[..., :8].contiguous(),
-                                              v[..., :8].contiguous(), seg_q, seg_ctx, W)
+    wide = _attn_inputs(2, 5, 2, attention_cuda.MAX_HEAD_DIM + 1, 3, seed=0, device=cuda)
+    with pytest.raises(ValueError, match="head width 257 above the kernels' limit of 256"):
+        attention_cuda.attention_forward_cuda(*wide[:6])
     with pytest.raises(ValueError, match="int32"):
         attention_cuda.attention_forward_cuda(q, k, v, seg_q.long(), seg_ctx, W)
     with pytest.raises(ValueError, match="float32"):
@@ -604,6 +628,24 @@ def test_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         attention_cuda.attention_dq_cuda(*bwd)
     with pytest.raises(ValueError, match="CUDA tensor"):
+        attention_cuda.attention_dkv_cuda(*bwd)
+
+
+def test_attention_wrappers_refuse_heads_above_the_limit():
+    """Every head width up to MAX_HEAD_DIM runs; a wider one raises before
+    any build, naming the limit, on any device."""
+    from torched_impala_tpu_torch.ops import attention, attention_cuda
+
+    assert attention_cuda.MAX_HEAD_DIM == 256
+    q, k, v, seg_q, seg_ctx, W, g = _attn_inputs(2, 5, 2, 257, 3, seed=0, device="cpu")
+    out, lse = attention.windowed_attention_reference(q, k, v, seg_q, seg_ctx, W)
+    bwd = (q, k, v, g, lse, attention.row_term(out, g), seg_q, seg_ctx, W)
+    match = "head width 257 above the kernels' limit of 256"
+    with pytest.raises(ValueError, match=match):
+        attention_cuda.attention_forward_cuda(q, k, v, seg_q, seg_ctx, W)
+    with pytest.raises(ValueError, match=match):
+        attention_cuda.attention_dq_cuda(*bwd)
+    with pytest.raises(ValueError, match=match):
         attention_cuda.attention_dkv_cuda(*bwd)
 
 

@@ -10,6 +10,8 @@ flax-initialised params carried across by `params_from_jax`:
   warm cache, with `first` resets in both: outputs, all six state leaves
   and the parameter gradients at rtol 1e-4, atol 1e-5 (f32; sums in
   another order);
+- `dense_kernel="pallas"` (the JAX config's spelling) at 4 heads, dh 8,
+  against the JAX core running its Pallas kernel in interpret mode;
 - the kernel branch against the einsum branch, step mode against unroll
   mode, and `ImpalaNet(core="transformer")` against the JAX net;
 - the GELU and LayerNorm-epsilon hazards: the flax choice matches, the
@@ -52,7 +54,7 @@ from torched_impala_tpu_torch.models.convert import params_from_jax
 from torched_impala_tpu_torch.models.nets import ImpalaNet
 from torched_impala_tpu_torch.models.torsos import MLPTorso
 from torched_impala_tpu_torch.models.transformer import TransformerCore, TransformerCoreState
-from torched_impala_tpu_torch.ops import attention_cuda, fused_loss_cuda, losses
+from torched_impala_tpu_torch.ops import attention, attention_cuda, fused_loss_cuda, losses
 from torched_impala_tpu_torch.optim import RMSProp
 from torched_impala_tpu_torch.runtime import loop
 from torched_impala_tpu_torch.runtime.learner import Learner, LearnerConfig
@@ -93,8 +95,8 @@ def jax_core():
     return core, jax.tree.map(np.asarray, params)
 
 
-def _port_core(params, dense_kernel="einsum", dtype="float32"):
-    core = TransformerCore(F_IN, dense_kernel=dense_kernel, dtype=dtype, **CORE)
+def _port_core(params, dense_kernel="einsum", dtype="float32", **core_kw):
+    core = TransformerCore(F_IN, dense_kernel=dense_kernel, dtype=dtype, **dict(CORE, **core_kw))
     state = params_from_jax({"transformer": params["params"]})
     core.load_state_dict({k.removeprefix("transformer."): v for k, v in state.items()})
     return core
@@ -169,6 +171,38 @@ def test_core_matches_jax_over_two_unrolls(jax_core, jax_two_unrolls, dense_kern
         np.testing.assert_allclose(p.detach().numpy(), np.asarray(j), **TOL, err_msg=name)
     want = params_from_jax({"transformer": jax.tree.map(np.asarray, j_grads["params"])})
     assert set(want) == {f"transformer.{n}" for n in p_grads}
+    for name, g in p_grads.items():
+        np.testing.assert_allclose(g.numpy(), want[f"transformer.{name}"].numpy(), **TOL, err_msg=name)
+
+
+def test_pallas_spelling_runs_the_kernel_branch_at_dh_8(monkeypatch):
+    """dense_kernel="pallas", the JAX config's value, selects the kernel
+    branch. At d_model 32 with 4 heads (dh = 8, which the CUDA kernels
+    run zero-padded to 16) the port's core matches the JAX core running
+    its Pallas kernel (interpret mode) over two chained unrolls: outputs,
+    state and parameter gradients."""
+    heads = 4
+    jcore = JaxCore(dense_kernel="pallas", **dict(CORE, num_heads=heads))
+    (feat, first), _ = _unrolls(0)
+    params = jcore.init(jax.random.key(3), jnp.asarray(feat), jnp.asarray(first), jcore.initial_state(B))
+    params = jax.tree.map(np.asarray, params)
+    unrolls, weights = _unrolls(11), _weights(12)
+    j_outs, j_state, j_grads = _jax_run(jcore, params, unrolls, weights)
+    calls = []
+
+    def counted(*args):
+        calls.append(args[0].shape)
+        return attention.windowed_attention(*args)
+
+    monkeypatch.setattr(port_transformer, "windowed_attention", counted)
+    core = _port_core(params, "pallas", num_heads=heads)
+    assert core.dense_kernel == "kernel"
+    p_outs, p_state, p_grads = _port_run(core, unrolls, weights)
+    # Two unrolls x two layers, each at the true head width.
+    assert calls == [(B, T, heads, D // heads)] * 4
+    for p, j in zip((*p_outs, *p_state), (*j_outs, *j_state)):
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(j), **TOL)
+    want = params_from_jax({"transformer": jax.tree.map(np.asarray, j_grads["params"])})
     for name, g in p_grads.items():
         np.testing.assert_allclose(g.numpy(), want[f"transformer.{name}"].numpy(), **TOL, err_msg=name)
 
@@ -470,5 +504,7 @@ def test_dense_kernel_resolution(monkeypatch):
     score = (cfg.unroll_length + 1) * (cfg.transformer_window + cfg.unroll_length + 1)
     want = "kernel" if score >= configs.KERNEL_MIN_SCORE_ELEMS else "einsum"
     assert configs.resolve_dense_kernel(cfg) == want
+    # The JAX package's spelling of the kernel branch means the same here.
+    assert configs.resolve_dense_kernel(dataclasses.replace(cfg, transformer_dense_kernel="pallas")) == "kernel"
     with pytest.raises(ValueError, match="transformer_dense_kernel"):
-        configs.resolve_dense_kernel(dataclasses.replace(cfg, transformer_dense_kernel="pallas"))
+        configs.resolve_dense_kernel(dataclasses.replace(cfg, transformer_dense_kernel="flash"))

@@ -158,15 +158,18 @@ KERNEL_MIN_SCORE_ELEMS = 21 * 149
 
 def resolve_dense_kernel(cfg: ExperimentConfig) -> str:
     """'kernel' or 'einsum' for the transformer core's learner unroll;
+    'pallas' (the JAX package's name for its kernel) means 'kernel';
     'auto' takes the kernel on a CUDA host when the learner's score
     matrix reaches KERNEL_MIN_SCORE_ELEMS (the JAX rule's form, with the
     card's own threshold)."""
     choice = cfg.transformer_dense_kernel
-    if choice not in ("auto", "kernel", "einsum"):
+    if choice not in ("auto", "kernel", "pallas", "einsum"):
         raise ValueError(
             f"unknown transformer_dense_kernel {choice!r}; "
-            "expected 'auto', 'kernel' or 'einsum'"
+            "expected 'auto', 'kernel' (or 'pallas') or 'einsum'"
         )
+    if choice == "pallas":
+        return "kernel"
     if choice != "auto":
         return choice
     t_learner = cfg.unroll_length + 1

@@ -10,16 +10,22 @@
 //
 // Design: one block of 4 warps per (b, h, 8 query rows); each warp owns 2
 // rows. The context streams through shared memory in tiles of 32 slots
-// (k, v converted to f32; k's rows padded to DH + 1 floats so that 32
+// (k, v converted to f32; k's rows padded to DP + 1 floats so that 32
 // lanes reading 32 different rows hit 32 banks). For each of its rows a
-// warp maps lane <-> slot for the logits (q . k over DH), takes the tile
+// warp maps lane <-> slot for the logits (q . k over DP), takes the tile
 // max and sum with shuffles, rescales its accumulator by
 // alpha = exp(m_old - m_new), and then maps lane <-> output dim for
 // P V, broadcasting each slot's probability with a shuffle. m, l and the
-// accumulator (DH / 32 floats a lane) stay in registers. Tiles past the
+// accumulator (DP / 32 floats a lane) stay in registers. Tiles past the
 // causal diagonal end the sweep (`tile_may_see`); a row that sees nothing
 // of a tile skips it (exact: p = 0 changes neither m, l nor acc). A row
 // that sees nothing at all writes zeros and lse = -1e30 (finite).
+//
+// Head widths: any dh from 1 to 256 runs at the padded width DP of
+// attention_common.cuh (16, 32, 64, 128 or 256): the padded columns load
+// as 0, so q . k and P V over DP add only 0 x 0 terms, and out is written
+// for d < dh. The arrays sit in dynamic shared memory, (72 DP + 64) x 4
+// bytes: 73,984 at DP = 256, past the 48 KB static limit.
 //
 // bf16 inputs: the probabilities are rounded to bf16 before P V, as the
 // TPU kernel feeds p in v's dtype to the MXU; every sum is f32.
@@ -42,23 +48,31 @@ constexpr int kRowsPerWarp = 2;
 constexpr int kRows = kWarps * kRowsPerWarp;  // query rows a block
 constexpr int kSlots = 32;                    // context slots a tile
 
-template <typename T, int DH>
+// Dynamic shared memory of the DP instantiation: q_s, k_s (rows padded to
+// DP + 1), v_s, then the tile's context segments.
+template <int DP>
+constexpr int smem_bytes() {
+  return (kRows * DP + kSlots * (DP + 1) + kSlots * DP) * 4 + kSlots * 4;
+}
+
+template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads) attention_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const int* __restrict__ seg_q, const int* __restrict__ seg_ctx,
     float* __restrict__ out, float* __restrict__ lse, int Tq, int S, int H,
-    int W, float scale) {
-  constexpr int DPL = (DH + 31) / 32;  // output dims a lane
-  __shared__ float q_s[kRows * DH];
-  __shared__ float k_s[kSlots * (DH + 1)];
-  __shared__ float v_s[kSlots * DH];
-  __shared__ int segc_s[kSlots];
+    int dh, int W, float scale) {
+  constexpr int DPL = (DP + 31) / 32;  // output dims a lane
+  extern __shared__ float smem[];
+  float* q_s = smem;
+  float* k_s = q_s + kRows * DP;
+  float* v_s = k_s + kSlots * (DP + 1);
+  int* segc_s = reinterpret_cast<int*>(v_s + kSlots * DP);
 
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int t0 = blockIdx.x * kRows;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  load_rows<T, DH, DH>(q_s, q, b, h, t0, kRows, Tq, H);
+  load_rows<T, DP>(q_s, DP, q, b, h, t0, kRows, Tq, H, dh);
   float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][DPL];
   int seg_t[kRowsPerWarp];
 #pragma unroll
@@ -73,8 +87,8 @@ __global__ void __launch_bounds__(kThreads) attention_fwd_kernel(
 
   for (int s0 = 0; s0 < S && tile_may_see(t0 + kRows - 1, s0, W); s0 += kSlots) {
     __syncthreads();  // the previous tile is consumed
-    load_rows<T, DH, DH + 1>(k_s, k, b, h, s0, kSlots, S, H);
-    load_rows<T, DH, DH>(v_s, v, b, h, s0, kSlots, S, H);
+    load_rows<T, DP>(k_s, DP + 1, k, b, h, s0, kSlots, S, H, dh);
+    load_rows<T, DP>(v_s, DP, v, b, h, s0, kSlots, S, H, dh);
     if (threadIdx.x < kSlots) {
       const int s = s0 + threadIdx.x;
       segc_s[threadIdx.x] = s < S ? seg_ctx[static_cast<long>(b) * S + s] : 0;
@@ -90,7 +104,7 @@ __global__ void __launch_bounds__(kThreads) attention_fwd_kernel(
       if (vis) {
         float dot = 0.0f;
 #pragma unroll
-        for (int d = 0; d < DH; ++d) dot += q_s[row * DH + d] * k_s[lane * (DH + 1) + d];
+        for (int d = 0; d < DP; ++d) dot += q_s[row * DP + d] * k_s[lane * (DP + 1) + d];
         logit = dot * scale;
       }
       const float m_new = fmaxf(m[r], warp_max(logit));
@@ -106,7 +120,7 @@ __global__ void __launch_bounds__(kThreads) attention_fwd_kernel(
 #pragma unroll
         for (int j = 0; j < DPL; ++j) {
           const int d = lane + 32 * j;
-          if (d < DH) acc[r][j] += ps * v_s[sl * DH + d];
+          if (d < DP) acc[r][j] += ps * v_s[sl * DP + d];
         }
       }
     }
@@ -121,31 +135,37 @@ __global__ void __launch_bounds__(kThreads) attention_fwd_kernel(
 #pragma unroll
     for (int j = 0; j < DPL; ++j) {
       const int d = lane + 32 * j;
-      if (d < DH) out[row * DH + d] = acc[r][j] / safe_l;
+      if (d < dh) out[row * dh + d] = acc[r][j] / safe_l;
     }
     if (lane == 0) lse[(static_cast<long>(b) * H + h) * Tq + t] = m[r] + logf(safe_l);
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DP>
 int launch(const void* q, const void* k, const void* v, const int* seg_q,
            const int* seg_ctx, float* out, float* lse, int B, int Tq, int S,
-           int H, int W, float scale, cudaStream_t stream) {
+           int H, int dh, int W, float scale, int device, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<DP>();
+  const cudaError_t err = set_smem_ceiling_once<attention_fwd_kernel<T, DP>>(device, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Tq + kRows - 1) / kRows, B * H);
-  attention_fwd_kernel<T, DH><<<grid, kThreads, 0, stream>>>(
+  attention_fwd_kernel<T, DP><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      seg_q, seg_ctx, out, lse, Tq, S, H, W, scale);
+      seg_q, seg_ctx, out, lse, Tq, S, H, dh, W, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_dh(int dh, const void* q, const void* k, const void* v,
               const int* seg_q, const int* seg_ctx, float* out, float* lse,
-              int B, int Tq, int S, int H, int W, float scale, cudaStream_t stream) {
-  switch (dh) {
-    case 16: return launch<T, 16>(q, k, v, seg_q, seg_ctx, out, lse, B, Tq, S, H, W, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, seg_q, seg_ctx, out, lse, B, Tq, S, H, W, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, seg_q, seg_ctx, out, lse, B, Tq, S, H, W, scale, stream);
+              int B, int Tq, int S, int H, int W, float scale, int device,
+              cudaStream_t stream) {
+  switch (dh < 1 ? 0 : padded_width(dh)) {
+    case 16: return launch<T, 16>(q, k, v, seg_q, seg_ctx, out, lse, B, Tq, S, H, dh, W, scale, device, stream);
+    case 32: return launch<T, 32>(q, k, v, seg_q, seg_ctx, out, lse, B, Tq, S, H, dh, W, scale, device, stream);
+    case 64: return launch<T, 64>(q, k, v, seg_q, seg_ctx, out, lse, B, Tq, S, H, dh, W, scale, device, stream);
+    case 128: return launch<T, 128>(q, k, v, seg_q, seg_ctx, out, lse, B, Tq, S, H, dh, W, scale, device, stream);
+    case 256: return launch<T, 256>(q, k, v, seg_q, seg_ctx, out, lse, B, Tq, S, H, dh, W, scale, device, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -154,7 +174,7 @@ int launch_dh(int dh, const void* q, const void* k, const void* v,
 
 // Launches on `stream` (PyTorch's current stream) on `device`; returns
 // cudaGetLastError() so a refused launch is reported to the caller.
-// is_bf16 selects bfloat16 q/k/v (else float32); dh is 16, 32 or 64;
+// is_bf16 selects bfloat16 q/k/v (else float32); dh is 1 to 256;
 // scale is 1/sqrt(dh), rounded to float by the caller.
 extern "C" int attention_fwd_launch(const void* q, const void* k, const void* v,
                                     const int* seg_q, const int* seg_ctx,
@@ -164,6 +184,6 @@ extern "C" int attention_fwd_launch(const void* q, const void* k, const void* v,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_dh<__nv_bfloat16>(dh, q, k, v, seg_q, seg_ctx, out, lse, B, Tq, S, H, W, scale, st)
-                 : launch_dh<float>(dh, q, k, v, seg_q, seg_ctx, out, lse, B, Tq, S, H, W, scale, st);
+  return is_bf16 ? launch_dh<__nv_bfloat16>(dh, q, k, v, seg_q, seg_ctx, out, lse, B, Tq, S, H, W, scale, device, st)
+                 : launch_dh<float>(dh, q, k, v, seg_q, seg_ctx, out, lse, B, Tq, S, H, W, scale, device, st);
 }

@@ -18,9 +18,11 @@ counter. A fresh state has kv_seg = -1 (matches no segment: an empty
 cache).
 
 Attention runs one of two branches (`dense_kernel`): "einsum", the JAX
-package's einsum branch in plain PyTorch products, or "kernel", the
-windowed flash attention of `ops/attention.py` (the hand-written CUDA
-kernels on the card, their plain versions on the CPU). Step mode always
+package's einsum branch in plain PyTorch products, or "kernel" (also
+spelled "pallas", the JAX package's name), the windowed flash attention
+of `ops/attention.py` (the hand-written CUDA kernels on the card, their
+plain versions on the CPU). Every head width up to 256 runs on the
+kernels (`ops/attention_cuda.py:MAX_HEAD_DIM`). Step mode always
 takes the einsum branch, as in JAX. The two branches agree where every
 query sees at least itself, which the core guarantees.
 
@@ -164,16 +166,17 @@ class TransformerCore(nn.Module):
             )
         if attention != "dense":
             raise ValueError(f"attention={attention!r}; expected 'dense'")
-        if dense_kernel not in ("einsum", "kernel"):
+        if dense_kernel not in ("einsum", "kernel", "pallas"):
             raise ValueError(
                 f"dense_kernel={dense_kernel!r}; expected 'einsum' or 'kernel' "
-                "('auto' is resolved by configs.make_agent)"
+                "(or 'pallas', the JAX package's name for it; 'auto' is "
+                "resolved by configs.make_agent)"
             )
         if d_model % num_heads:
             raise ValueError(f"d_model {d_model} not divisible by {num_heads} heads")
         self.d_model, self.num_layers, self.num_heads = d_model, num_layers, num_heads
         self.window = window
-        self.dense_kernel = dense_kernel
+        self.dense_kernel = "kernel" if dense_kernel == "pallas" else dense_kernel
         self.dtype = precision.compute_dtype(dtype)
         self.in_proj = _dense(input_size, d_model, generator)
         for layer in range(num_layers):

@@ -11,8 +11,9 @@ and `attention_dkv_reference`.
 The wrappers check their inputs, allocate the outputs and launch on
 PyTorch's current stream. They have no fallback: a CPU tensor, a dtype
 other than float32 or bfloat16 (int32 for the segments), a head width
-other than 16, 32 or 64, a non-contiguous tensor, a failed build or a
-refused launch raises. `LAUNCHES` counts each kernel's launches in this
+above MAX_HEAD_DIM, a non-contiguous tensor, a failed build or a refused
+launch raises. Every head width from 1 to MAX_HEAD_DIM runs: the kernels
+are built at padded widths and take the true one at run time. `LAUNCHES` counts each kernel's launches in this
 process: "fwd", "dq" and "dkv", one per wrapper.
 """
 
@@ -27,7 +28,8 @@ from torched_impala_tpu_torch.ops._build import check_input
 from torched_impala_tpu_torch.ops.attention import row_term
 
 LAUNCHES = {"fwd": 0, "dq": 0, "dkv": 0}
-HEAD_DIMS = (16, 32, 64)
+# The widest instantiation (csrc/attention_common.cuh); wider heads raise.
+MAX_HEAD_DIM = 256
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -59,8 +61,8 @@ def _check(kernel: str, q, k_ctx, v_ctx, seg_q, seg_ctx, W: int):
         )
     B, T, H, dh = q.shape
     S = k_ctx.shape[1]
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"{kernel}: head width {dh} not in {HEAD_DIMS}")
+    if dh > MAX_HEAD_DIM:
+        raise ValueError(f"{kernel}: head width {dh} above the kernels' limit of {MAX_HEAD_DIM}")
     if not 0 <= W <= S:
         raise ValueError(f"{kernel}: W={W} outside [0, S={S}]")
     device = q.device
