@@ -16,11 +16,14 @@ non-zero (no phase's failure is caught):
    `impala_loss` through the kernel against `impala_loss` through the
    plain V-trace (total and grads, rtol 1e-5).
 4. lstm: the LSTM-cell kernel against its plain version at the learner's
-   (B=32, F=H=256) and the actor's (B=8) shapes and two ragged ones
-   (max abs error <= 5e-5: f32 sums of up to 512 products in another
-   order), gradients through the autograd.Function with the kernel's
-   forward against the plain forward's (rtol 1e-4, atol 1e-5); times,
-   bound and the `torch.lstm_cell` time at the learner's shape.
+   (B=32, F=H=256) and the actor's (B=8) shapes and five ragged ones
+   (max abs error <= 5e-5: f32 sums of up to 768 products in another
+   order), a second launch bit-identical to the first, gradients through
+   the autograd.Function with the kernel's forward against the plain
+   forward's (rtol 1e-4, atol 1e-5); at the learner's and the actor's
+   shapes the kernel's grid (>= 128 blocks, from the profiler's trace),
+   its time (events and profiler device µs), the bound, and
+   `torch.lstm_cell`'s time (events and profiler device µs).
 5. resblock: the bf16 kernel's machine code holds `HGMMA` (wgmma)
    instructions (`cuobjdump -sass`; the phase fails on none); the
    residual-block kernels against their plain version at the three
@@ -101,7 +104,11 @@ THRESHOLDS = [
 PONG_STEPS = 20
 BREAKOUT_STEPS = 12
 PROFILED_STEPS = 8
-LSTM_SHAPES = [(32, 256, 256), (8, 256, 256), (1, 7, 7), (33, 100, 130)]  # B, F, H
+# B, F, H: the learner's and the actors' shapes first (both timed), then
+# ragged ones: one unit, K tiled past one stage, two row tiles.
+LSTM_SHAPES = [(32, 256, 256), (8, 256, 256), (1, 7, 7), (33, 100, 130), (1, 1, 1),
+               (2, 3, 300), (64, 512, 256)]
+LSTM_MIN_BLOCKS = 128  # the grid at H = 256, whatever B
 LSTM_ATOL = 5e-5
 # (N, H, W, C): the learner's three block shapes (21 x 32 images), then
 # one actor's (8 envs); all are timed, the learner's are the kernels
@@ -372,6 +379,30 @@ def phase_vtrace(device):
     )
 
 
+def launched_grids(fn, name):
+    """The grid of every kernel whose name contains `name` that one call of
+    `fn` launched, from the profiler's trace."""
+    import os
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return [
+        e["args"]["grid"]
+        for e in events
+        if e.get("cat") == "kernel" and name in e.get("name", "")
+    ]
+
+
 def phase_lstm(device):
     import torch
 
@@ -393,8 +424,11 @@ def phase_lstm(device):
     for B, F, H in LSTM_SHAPES:
         args = inputs(B, F, H, seed=B + F + H)
         out = lstm_cuda.lstm_cell_cuda(*args)
+        again = lstm_cuda.lstm_cell_cuda(*args)
         ref = lstm.lstm_reference(*args)
         torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(out, again)):
+            raise AssertionError(f"lstm kernel: two launches differ at {(B, F, H)}")
         per_shape[f"{B}x{F}x{H}"] = max(float((a - b).abs().max()) for a, b in zip(out, ref))
     worst = max(per_shape.values())
     if not worst <= LSTM_ATOL:
@@ -411,45 +445,63 @@ def phase_lstm(device):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
     grad_err = max(float((a - b).abs().max()) for a, b in zip(g_kernel, g_plain))
 
-    x, h, c, wi, wh, b = args
-    w_ih, w_hh, zeros = wi.t().contiguous(), wh.t().contiguous(), torch.zeros_like(b)
-    lib_h, lib_c = torch.lstm_cell(x, (h, c), w_ih, w_hh, b, zeros)
-    ref_c, ref_h, _ = lstm.lstm_reference(*args)
-    library_err = max(float((lib_c - ref_c).abs().max()), float((lib_h - ref_h).abs().max()))
-    kernel_ms = time_cuda(lambda: lstm_cuda.lstm_cell_cuda(*args))
-    plain_ms = time_cuda(lambda: lstm.lstm_reference(*args))
-    library_ms = time_cuda(lambda: torch.lstm_cell(x, (h, c), w_ih, w_hh, b, zeros))
-    device_us, _ = profiled_device_us(
-        lambda: lstm_cuda.lstm_cell_cuda(*args), name="lstm_cell_kernel"
-    )
-    bytes_moved = 4 * (B * F + 2 * B * H + (F + H) * 4 * H + 4 * H) + 4 * (2 * B * H + B * 4 * H)
-    # The two gate products, the gate adds, and the cell's elementwise
-    # work counting each activation as one operation.
-    ops = 2 * B * (F + H) * 4 * H + 2 * B * 4 * H + 8 * B * H
-    bound_ms, bound_by = bound(bytes_moved, ops, PEAK_F32_OPS_PER_S)
+    timed = {}
+    for B, F, H in LSTM_SHAPES[:2]:
+        args = inputs(B, F, H, seed=1)
+        x, h, c, wi, wh, b = args
+        w_ih, w_hh, zeros = wi.t().contiguous(), wh.t().contiguous(), torch.zeros_like(b)
+        lib_h, lib_c = torch.lstm_cell(x, (h, c), w_ih, w_hh, b, zeros)
+        ref_c, ref_h, _ = lstm.lstm_reference(*args)
+        library_err = max(float((lib_c - ref_c).abs().max()), float((lib_h - ref_h).abs().max()))
+        grids = launched_grids(lambda: lstm_cuda.lstm_cell_cuda(*args), "lstm_cell_kernel")
+        blocks = [g[0] * g[1] * g[2] for g in grids]
+        if len(blocks) != 1 or blocks[0] < LSTM_MIN_BLOCKS:
+            raise AssertionError(f"lstm kernel at {(B, F, H)}: grids {grids}, expected one of >= {LSTM_MIN_BLOCKS} blocks")
+        kernel_ms = time_cuda(lambda: lstm_cuda.lstm_cell_cuda(*args))
+        plain_ms = time_cuda(lambda: lstm.lstm_reference(*args))
+        library_ms = time_cuda(lambda: torch.lstm_cell(x, (h, c), w_ih, w_hh, b, zeros))
+        device_us, _ = profiled_device_us(
+            lambda: lstm_cuda.lstm_cell_cuda(*args), name="lstm_cell_kernel"
+        )
+        library_device_us, library_kernels = profiled_device_us(
+            lambda: torch.lstm_cell(x, (h, c), w_ih, w_hh, b, zeros)
+        )
+        bytes_moved = 4 * (B * F + 2 * B * H + (F + H) * 4 * H + 4 * H) + 4 * (2 * B * H + B * 4 * H)
+        # The two gate products, the gate adds, and the cell's elementwise
+        # work counting each activation as one operation.
+        ops = 2 * B * (F + H) * 4 * H + 2 * B * 4 * H + 8 * B * H
+        bound_ms, bound_by = bound(bytes_moved, ops, PEAK_F32_OPS_PER_S)
+        timed[f"{B}x{F}x{H}"] = dict(
+            grid_blocks=blocks[0],
+            kernel_us=kernel_ms * 1e3,
+            kernel_device_us_profiler=device_us,
+            plain_us=plain_ms * 1e3,
+            library_us=library_ms * 1e3,
+            library_device_us_profiler=library_device_us,
+            library_kernels_a_call=library_kernels,
+            library_max_abs_err_vs_plain=library_err,
+            bound_us=bound_ms * 1e3,
+            bound_by=bound_by,
+            bytes=bytes_moved,
+            ops=ops,
+        )
+        if (B, F, H) == LSTM_SHAPES[0]:
+            learner = dict(
+                max_abs_err=worst, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms,
+            )
     emit(
         {
             "phase": "lstm",
             "max_abs_err": worst,
             "max_abs_err_by_shape": per_shape,
             "tolerance": LSTM_ATOL,
+            "two_launches_bit_identical": True,
             "grad_max_abs_diff": grad_err,
-            "learner_shape": [B, F, H],
-            "kernel_us": kernel_ms * 1e3,
-            "plain_us": plain_ms * 1e3,
-            "library_us": library_ms * 1e3,
-            "library_max_abs_err_vs_plain": library_err,
-            "kernel_device_us_profiler": device_us,
-            "bound_us": bound_ms * 1e3,
-            "bound_by": bound_by,
-            "bytes": bytes_moved,
-            "ops": ops,
+            "timed": timed,
         }
     )
-    return dict(
-        max_abs_err=worst, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=library_ms,
-    )
+    return learner
 
 
 def phase_resblock(device):

@@ -13,8 +13,10 @@ Tolerances, each kernel against its plain version on the same card:
   every multiply and add as the plain version does (no fused
   multiply-adds); only `expf` may differ from `exp` in the last place.
 - LSTM cell: 5e-5 absolute. The gate pre-activations are f32 sums of
-  F + H (up to 512) products taken in another order than the plain
-  matmul's; the activations and the carry update round alike.
+  F + H (512 at the presets' shapes, 768 at the widest case here)
+  products taken in another order than the plain matmul's; the
+  activations and the carry update round alike. Two launches on the same
+  inputs are bit-identical (a fixed reduction order, no atomics).
 - Residual block: f32 1e-5 absolute and relative (9 C-term sums in
   another order); bf16 at most one bf16 rounding of the output apart
   (rtol = atol = 2^-7) with 99% of the elements bit-equal, since both
@@ -149,6 +151,9 @@ def test_vtrace_wrapper_refuses_bad_inputs(cuda):
 
 
 LSTM_SHAPES = [(32, 256, 256), (8, 256, 256), (1, 7, 7), (33, 100, 130)]
+# One unit and one row; F far below H, H ragged past one 128-row stage;
+# two row tiles with K = 768 over four stages.
+LSTM_EDGE_SHAPES = [(1, 1, 1), (2, 3, 300), (64, 512, 256)]
 BLOCK_SHAPES = [(672, 42, 42, 16), (672, 21, 21, 32), (672, 11, 11, 32), (8, 42, 42, 16)]
 BF16_ULP = 2.0**-7
 
@@ -181,7 +186,7 @@ def _block_inputs(N, H, W, C, dtype, seed, device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,F,H", LSTM_SHAPES)
+@pytest.mark.parametrize("B,F,H", LSTM_SHAPES + LSTM_EDGE_SHAPES)
 def test_lstm_kernel_matches_reference(cuda, B, F, H):
     from torched_impala_tpu_torch.ops import lstm, lstm_cuda
 
@@ -193,6 +198,82 @@ def test_lstm_kernel_matches_reference(cuda, B, F, H):
     torch.cuda.synchronize()
     for a, b in zip(out, ref):
         torch.testing.assert_close(a, b, rtol=0, atol=5e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,F,H", [(32, 256, 256), (8, 256, 256), (64, 512, 256)])
+def test_lstm_kernel_launched_twice_is_bit_identical(cuda, B, F, H):
+    from torched_impala_tpu_torch.ops import lstm_cuda
+
+    args = _lstm_inputs(B, F, H, seed=7, device=cuda)
+    first = lstm_cuda.lstm_cell_cuda(*args)
+    second = lstm_cuda.lstm_cell_cuda(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [32, 8])
+def test_lstm_kernel_grid_fills_the_card(cuda, B, tmp_path):
+    """At H = 256 the grid has 128 blocks at the learner's B = 32 and at
+    the actors' B = 8 alike (read from the profiler's trace)."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from torched_impala_tpu_torch.ops import lstm_cuda
+
+    args = _lstm_inputs(B, 256, 256, seed=0, device=cuda)
+    lstm_cuda.lstm_cell_cuda(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        lstm_cuda.lstm_cell_cuda(*args)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    grids = [e["args"]["grid"] for e in events
+             if e.get("cat") == "kernel" and "lstm_cell_kernel" in e.get("name", "")]
+    assert len(grids) == 1 and grids[0][0] * grids[0][1] * grids[0][2] >= 128, grids
+
+
+@pytest.mark.gpu
+def test_lstm_concurrent_learner_and_actor_launches(cuda):
+    """The learner (B = 32) and an actor (B = 8) launch the kernel at once,
+    50 times each from two threads: no launch is refused, and every output
+    is its plain version's and the same each time."""
+    import threading
+
+    from torched_impala_tpu_torch.ops import lstm, lstm_cuda
+
+    cases = [_lstm_inputs(32, 256, 256, seed=1, device=cuda),
+             _lstm_inputs(8, 256, 256, seed=2, device=cuda)]
+    refs = [lstm.lstm_reference(*args) for args in cases]
+    torch.cuda.synchronize()
+    outs, errors = [[], []], []
+    start = threading.Barrier(len(cases))
+
+    def launch(i):
+        try:
+            start.wait()
+            for _ in range(50):
+                outs[i].append(lstm_cuda.lstm_cell_cuda(*cases[i]))
+            torch.cuda.synchronize()
+        except Exception as e:  # raised again below, in the test's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=launch, args=(i,)) for i in range(len(cases))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    for ref, runs in zip(refs, outs):
+        assert len(runs) == 50
+        for a, b in zip(runs[0], ref):
+            torch.testing.assert_close(a, b, rtol=0, atol=5e-5)
+        for out in runs[1:]:
+            assert all(torch.equal(a, b) for a, b in zip(out, runs[0]))
 
 
 @pytest.mark.gpu

@@ -13,8 +13,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <mutex>
 #include <type_traits>
+
+#include "smem_ceiling.cuh"
 
 namespace attn {
 
@@ -65,11 +66,21 @@ __device__ __forceinline__ bool tile_may_see(int t1, int s0, int W) {
 // Shared memory holds DP columns; the columns dh <= d < DP are loaded as
 // 0, so every dot product over DP adds only 0 x 0 terms to the dh true
 // ones and the sums are exact; outputs are written for d < dh only. The
-// scale is the caller's 1/sqrt(dh) of the true dh.
-constexpr int kMaxDevices = 64;
+// scale is the caller's 1/sqrt(dh) of the true dh. Each instantiation
+// takes its arrays from dynamic shared memory, whose size depends on DP
+// alone, and its launcher sets that size as the kernel's ceiling once
+// (smem_ceiling.cuh).
+
+// The padded width a head width runs at; 0 past the widest instantiation.
+inline int padded_width(int dh) {
+  for (int dp : {16, 32, 64, 128, 256}) {
+    if (dh <= dp) return dp;
+  }
+  return 0;
+}
 
 // rows x DP elements of head h from a [B, L, H, dh] tensor (global row
-// stride dh) into shared memory (row stride LD floats): zeros past row L
+// stride dh) into shared memory (row stride ld floats): zeros past row L
 // and in the padded columns dh <= d < DP. All threads take part.
 template <typename T, int DP>
 __device__ __forceinline__ void load_rows(float* dst, int ld, const T* __restrict__ src,
@@ -81,31 +92,6 @@ __device__ __forceinline__ void load_rows(float* dst, int ld, const T* __restric
         row < L && d < dh ? to_f32(src[((static_cast<long>(b) * L + row) * H + h) * dh + d])
                           : 0.0f;
   }
-}
-
-// Every instantiation takes its arrays from dynamic shared memory, whose
-// size depends on DP alone. The launch attribute is the kernel's, shared
-// by every host thread, so it is set once per instantiation and device,
-// to that one fixed size, never per call (a call setting its own size
-// can lower it under another thread's launch).
-template <auto Kernel>
-cudaError_t set_smem_ceiling_once(int device, int bytes) {
-  static std::once_flag done[kMaxDevices];
-  static cudaError_t result[kMaxDevices];
-  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
-  std::call_once(done[device], [&] {
-    result[device] =
-        cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  });
-  return result[device];
-}
-
-// The padded width a head width runs at; 0 past the widest instantiation.
-inline int padded_width(int dh) {
-  for (int dp : {16, 32, 64, 128, 256}) {
-    if (dh <= dp) return dp;
-  }
-  return 0;
 }
 
 }  // namespace attn
