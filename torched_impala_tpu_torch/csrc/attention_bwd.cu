@@ -83,8 +83,8 @@ __global__ void __launch_bounds__(kThreads) attention_dq_kernel(
   const int t0 = blockIdx.x * kQRows;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  load_rows<T, DP>(q_s, DP, q, b, h, t0, kQRows, Tq, H, dh);
-  load_rows<T, DP>(g_s, DP, g, b, h, t0, kQRows, Tq, H, dh);
+  load_rows<T, DP, kQRows, DP>(q_s, q, b, h, t0, Tq, H, dh);
+  load_rows<T, DP, kQRows, DP>(g_s, g, b, h, t0, Tq, H, dh);
   float acc[kQRowsPerWarp][DPL], lse_t[kQRowsPerWarp], d_t[kQRowsPerWarp];
   int seg_t[kQRowsPerWarp];
 #pragma unroll
@@ -100,8 +100,8 @@ __global__ void __launch_bounds__(kThreads) attention_dq_kernel(
 
   for (int s0 = 0; s0 < S && tile_may_see(t0 + kQRows - 1, s0, W); s0 += kSlots) {
     __syncthreads();
-    load_rows<T, DP>(k_s, DP + 1, k, b, h, s0, kSlots, S, H, dh);
-    load_rows<T, DP>(v_s, DP + 1, v, b, h, s0, kSlots, S, H, dh);
+    load_rows<T, DP, kSlots, DP + 1>(k_s, k, b, h, s0, S, H, dh);
+    load_rows<T, DP, kSlots, DP + 1>(v_s, v, b, h, s0, S, H, dh);
     if (threadIdx.x < kSlots) {
       const int s = s0 + threadIdx.x;
       segc_s[threadIdx.x] = s < S ? seg_ctx[static_cast<long>(b) * S + s] : 0;
@@ -183,8 +183,8 @@ __global__ void __launch_bounds__(kThreads) attention_dkv_kernel(
   const int s0 = blockIdx.x * kKRows;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  load_rows<T, DP>(k_s, DP, k, b, h, s0, kKRows, S, H, dh);
-  load_rows<T, DP>(v_s, DP, v, b, h, s0, kKRows, S, H, dh);
+  load_rows<T, DP, kKRows, DP>(k_s, k, b, h, s0, S, H, dh);
+  load_rows<T, DP, kKRows, DP>(v_s, v, b, h, s0, S, H, dh);
   float dk_acc[kKRowsPerWarp][DPL], dv_acc[kKRowsPerWarp][DPL];
   int seg_s[kKRowsPerWarp];
 #pragma unroll
@@ -198,8 +198,8 @@ __global__ void __launch_bounds__(kThreads) attention_dkv_kernel(
   for (int t0 = 0; t0 < Tq; t0 += kQTile) {
     if (!tile_may_see(t0 + kQTile - 1, s0, W)) continue;
     __syncthreads();
-    load_rows<T, DP>(q_s, DP + 1, q, b, h, t0, kQTile, Tq, H, dh);
-    load_rows<T, DP>(g_s, DP + 1, g, b, h, t0, kQTile, Tq, H, dh);
+    load_rows<T, DP, kQTile, DP + 1>(q_s, q, b, h, t0, Tq, H, dh);
+    load_rows<T, DP, kQTile, DP + 1>(g_s, g, b, h, t0, Tq, H, dh);
     if (threadIdx.x < kQTile) {
       const int t = t0 + threadIdx.x;
       const bool in = t < Tq;

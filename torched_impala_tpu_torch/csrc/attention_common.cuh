@@ -79,18 +79,27 @@ inline int padded_width(int dh) {
   return 0;
 }
 
-// rows x DP elements of head h from a [B, L, H, dh] tensor (global row
-// stride dh) into shared memory (row stride ld floats): zeros past row L
-// and in the padded columns dh <= d < DP. All threads take part.
-template <typename T, int DP>
-__device__ __forceinline__ void load_rows(float* dst, int ld, const T* __restrict__ src,
-                                          int b, int h, int row0, int rows,
-                                          int L, int H, int dh) {
-  for (int i = threadIdx.x; i < rows * DP; i += blockDim.x) {
-    const int r = i / DP, d = i % DP, row = row0 + r;
-    dst[r * ld + d] =
-        row < L && d < dh ? to_f32(src[((static_cast<long>(b) * L + row) * H + h) * dh + d])
-                          : 0.0f;
+// ROWS x DP elements of head h from a [B, L, H, dh] tensor (global row
+// stride dh) into shared memory (row stride LD floats): zeros past row L
+// and in the padded columns dh <= d < DP. All kThreads threads take part,
+// each with fixed columns (d0, d0 + kThreads, ...) of fixed rows, so the
+// column test and the offsets are worked out once.
+template <typename T, int DP, int ROWS, int LD>
+__device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src,
+                                          int b, int h, int row0, int L, int H,
+                                          int dh) {
+  constexpr int kColStep = DP < kThreads ? DP : kThreads;
+  constexpr int kRowStep = kThreads / kColStep;  // rows a pass
+  static_assert(ROWS % kRowStep == 0, "a pass covers whole rows");
+  const int d0 = threadIdx.x % kColStep, r0 = threadIdx.x / kColStep;
+#pragma unroll
+  for (int n = 0; n < ROWS / kRowStep; ++n) {
+    const int r = r0 + n * kRowStep, row = row0 + r;
+    const T* s = src + ((static_cast<long>(b) * L + row) * H + h) * dh;
+#pragma unroll
+    for (int d = d0; d < DP; d += kColStep) {
+      dst[r * LD + d] = row < L && d < dh ? to_f32(s[d]) : 0.0f;
+    }
   }
 }
 

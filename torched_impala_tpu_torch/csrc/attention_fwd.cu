@@ -72,7 +72,7 @@ __global__ void __launch_bounds__(kThreads) attention_fwd_kernel(
   const int t0 = blockIdx.x * kRows;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  load_rows<T, DP>(q_s, DP, q, b, h, t0, kRows, Tq, H, dh);
+  load_rows<T, DP, kRows, DP>(q_s, q, b, h, t0, Tq, H, dh);
   float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][DPL];
   int seg_t[kRowsPerWarp];
 #pragma unroll
@@ -87,8 +87,8 @@ __global__ void __launch_bounds__(kThreads) attention_fwd_kernel(
 
   for (int s0 = 0; s0 < S && tile_may_see(t0 + kRows - 1, s0, W); s0 += kSlots) {
     __syncthreads();  // the previous tile is consumed
-    load_rows<T, DP>(k_s, DP + 1, k, b, h, s0, kSlots, S, H, dh);
-    load_rows<T, DP>(v_s, DP, v, b, h, s0, kSlots, S, H, dh);
+    load_rows<T, DP, kSlots, DP + 1>(k_s, k, b, h, s0, S, H, dh);
+    load_rows<T, DP, kSlots, DP>(v_s, v, b, h, s0, S, H, dh);
     if (threadIdx.x < kSlots) {
       const int s = s0 + threadIdx.x;
       segc_s[threadIdx.x] = s < S ? seg_ctx[static_cast<long>(b) * S + s] : 0;
