@@ -730,6 +730,17 @@ def test_attention_wrappers_refuse_heads_above_the_limit():
         attention_cuda.attention_dkv_cuda(*bwd)
 
 
+def test_compare_builds_refuses_without_a_base_or_a_card(monkeypatch, capsys):
+    """The build comparison runs only on a card and with one base tree: it
+    exits 2 and prints no result otherwise."""
+    from torched_impala_tpu_torch.ops import compare_builds
+
+    assert compare_builds.main([]) == 2
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert compare_builds.main(["base/csrc"]) == 2
+    assert capsys.readouterr().out == ""
+
+
 def test_dispatch_takes_plain_version_on_cpu():
     from torched_impala_tpu_torch.ops import (
         attention, attention_cuda, conv_block, conv_block_cuda, fused_loss, fused_loss_cuda,
