@@ -631,18 +631,14 @@ ATTN_PADDED_DH = [8, 24, 96, 128, 256]
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("dh", ATTN_PADDED_DH)
 def test_attention_kernels_match_reference_at_any_head_width(cuda, dh, dtype):
-    from torched_impala_tpu_torch.ops import attention, attention_cuda
+    """The outputs match the plain versions' (assert_close also holds them
+    to the plain versions' true-dh shapes)."""
+    from torched_impala_tpu_torch.ops import attention_cuda
 
-    args = _attn_inputs(2, 40, 2, dh, 19, seed=dh, device=cuda, dtype=dtype)
-    q, k, v, seg_q, seg_ctx, W, g = args
     before = dict(attention_cuda.LAUNCHES)
+    args = _attn_inputs(2, 40, 2, dh, 19, seed=dh, device=cuda, dtype=dtype)
     _attention_vs_plain(args, bf16=dtype == torch.bfloat16)
     assert {k: v - before[k] for k, v in attention_cuda.LAUNCHES.items()} == {"fwd": 1, "dq": 1, "dkv": 1}
-    out, lse = attention_cuda.attention_forward_cuda(q, k, v, seg_q, seg_ctx, W)
-    bwd = (q, k, v, g, lse, attention.row_term(out, g), seg_q, seg_ctx, W)
-    dq = attention_cuda.attention_dq_cuda(*bwd)
-    dk, dv = attention_cuda.attention_dkv_cuda(*bwd)
-    assert out.shape == dq.shape == q.shape and dk.shape == dv.shape == k.shape
 
 
 @pytest.mark.gpu

@@ -301,7 +301,7 @@ int launch_kind(int kind, const Args& a, cudaStream_t stream) {
 
 template <typename T>
 int launch_dh(int kind, const Args& a, cudaStream_t stream) {
-  switch (a.dh < 1 ? 0 : padded_width(a.dh)) {
+  switch (padded_width(a.dh)) {
     case 16: return launch_kind<T, 16>(kind, a, stream);
     case 32: return launch_kind<T, 32>(kind, a, stream);
     case 64: return launch_kind<T, 64>(kind, a, stream);

@@ -71,8 +71,9 @@ __device__ __forceinline__ bool tile_may_see(int t1, int s0, int W) {
 // alone, and its launcher sets that size as the kernel's ceiling once
 // (smem_ceiling.cuh).
 
-// The padded width a head width runs at; 0 past the widest instantiation.
+// The padded width a head width runs at; 0 outside 1 to 256.
 inline int padded_width(int dh) {
+  if (dh < 1) return 0;
   for (int dp : {16, 32, 64, 128, 256}) {
     if (dh <= dp) return dp;
   }

@@ -160,7 +160,7 @@ int launch_dh(int dh, const void* q, const void* k, const void* v,
               const int* seg_q, const int* seg_ctx, float* out, float* lse,
               int B, int Tq, int S, int H, int W, float scale, int device,
               cudaStream_t stream) {
-  switch (dh < 1 ? 0 : padded_width(dh)) {
+  switch (padded_width(dh)) {
     case 16: return launch<T, 16>(q, k, v, seg_q, seg_ctx, out, lse, B, Tq, S, H, dh, W, scale, device, stream);
     case 32: return launch<T, 32>(q, k, v, seg_q, seg_ctx, out, lse, B, Tq, S, H, dh, W, scale, device, stream);
     case 64: return launch<T, 64>(q, k, v, seg_q, seg_ctx, out, lse, B, Tq, S, H, dh, W, scale, device, stream);
