@@ -181,37 +181,6 @@ def time_cuda(fn, iters=200, warmup=20) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def profiled_device_us(fn, calls=50, name=None):
-    """(device µs, kernel launches) per call of `fn` from torch.profiler,
-    over the CUDA kernels whose name contains `name` (every kernel when
-    `name` is None); (None, None) when the profiler saw no device time.
-    Only rows of device type CUDA count: a CPU op's row repeats the time
-    of the kernels it launched."""
-    import warnings
-
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", UserWarning)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        rows = [
-            avg
-            for avg in prof.key_averages()
-            if avg.device_type == DeviceType.CUDA
-            and not getattr(avg, "is_user_annotation", False)
-            and (name is None or name in avg.key)
-        ]
-    total = sum(avg.self_device_time_total for avg in rows)
-    if not total:
-        return None, None
-    return total / calls, sum(avg.count for avg in rows) / calls
-
-
 def bound(bytes_moved, ops, peak_ops):
     """(least ms, what binds it): bytes over the memory rate against
     operations over the peak rate of their type."""
@@ -265,7 +234,7 @@ def phase_build():
 def phase_vtrace(device):
     import torch
 
-    from torched_impala_tpu_torch.ops import losses, vtrace_cuda
+    from torched_impala_tpu_torch.ops import losses, profiling, vtrace_cuda
     from torched_impala_tpu_torch.ops.vtrace import vtrace_reference
 
     worst = 0.0
@@ -306,7 +275,7 @@ def phase_vtrace(device):
         vtrace_cuda.vtrace_cuda(**x)
     torch.cuda.synchronize()
     wrapper_host_us = (time.perf_counter() - t0) / calls * 1e6
-    device_us, _ = profiled_device_us(
+    device_us, _ = profiling.device_us(
         lambda: vtrace_cuda.vtrace_cuda(**x), name="vtrace_kernel"
     )
     bytes_moved = (4 * T * B + B) * 4 + 3 * T * B * 4
@@ -379,34 +348,10 @@ def phase_vtrace(device):
     )
 
 
-def launched_grids(fn, name):
-    """The grid of every kernel whose name contains `name` that one call of
-    `fn` launched, from the profiler's trace."""
-    import os
-    import tempfile
-
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    return [
-        e["args"]["grid"]
-        for e in events
-        if e.get("cat") == "kernel" and name in e.get("name", "")
-    ]
-
-
 def phase_lstm(device):
     import torch
 
-    from torched_impala_tpu_torch.ops import lstm, lstm_cuda
+    from torched_impala_tpu_torch.ops import lstm, lstm_cuda, profiling
 
     def inputs(B, F, H, seed):
         rng = np.random.default_rng(seed)
@@ -453,17 +398,17 @@ def phase_lstm(device):
         lib_h, lib_c = torch.lstm_cell(x, (h, c), w_ih, w_hh, b, zeros)
         ref_c, ref_h, _ = lstm.lstm_reference(*args)
         library_err = max(float((lib_c - ref_c).abs().max()), float((lib_h - ref_h).abs().max()))
-        grids = launched_grids(lambda: lstm_cuda.lstm_cell_cuda(*args), "lstm_cell_kernel")
+        grids = profiling.launched_grids(lambda: lstm_cuda.lstm_cell_cuda(*args), "lstm_cell_kernel")
         blocks = [g[0] * g[1] * g[2] for g in grids]
         if len(blocks) != 1 or blocks[0] < LSTM_MIN_BLOCKS:
             raise AssertionError(f"lstm kernel at {(B, F, H)}: grids {grids}, expected one of >= {LSTM_MIN_BLOCKS} blocks")
         kernel_ms = time_cuda(lambda: lstm_cuda.lstm_cell_cuda(*args))
         plain_ms = time_cuda(lambda: lstm.lstm_reference(*args))
         library_ms = time_cuda(lambda: torch.lstm_cell(x, (h, c), w_ih, w_hh, b, zeros))
-        device_us, _ = profiled_device_us(
+        device_us, _ = profiling.device_us(
             lambda: lstm_cuda.lstm_cell_cuda(*args), name="lstm_cell_kernel"
         )
-        library_device_us, library_kernels = profiled_device_us(
+        library_device_us, library_kernels = profiling.device_us(
             lambda: torch.lstm_cell(x, (h, c), w_ih, w_hh, b, zeros)
         )
         bytes_moved = 4 * (B * F + 2 * B * H + (F + H) * 4 * H + 4 * H) + 4 * (2 * B * H + B * 4 * H)
@@ -508,7 +453,7 @@ def phase_resblock(device):
     import torch
     import torch.nn.functional as F
 
-    from torched_impala_tpu_torch.ops import _build, conv_block, conv_block_cuda
+    from torched_impala_tpu_torch.ops import _build, conv_block, conv_block_cuda, profiling
 
     def inputs(N, H, W, C, dtype, seed):
         rng = np.random.default_rng(seed)
@@ -586,10 +531,10 @@ def phase_resblock(device):
         kernel_ms = time_cuda(lambda: conv_block_cuda.resblock_cuda(*args), iters=50, warmup=5)
         plain_ms = time_cuda(lambda: conv_block.block_reference(*args), iters=50, warmup=5)
         library_ms = time_cuda(lambda: library_block(*lib_args), iters=50, warmup=5)
-        device_us, _ = profiled_device_us(
+        device_us, _ = profiling.device_us(
             lambda: conv_block_cuda.resblock_cuda(*args), calls=20, name="resblock_bf16_wgmma"
         )
-        library_device_us, _ = profiled_device_us(lambda: library_block(*lib_args), calls=20)
+        library_device_us, _ = profiling.device_us(lambda: library_block(*lib_args), calls=20)
         bytes_moved = 2 * N * H * W * C * 2 + 4 * (2 * 9 * C * C + 2 * C)
         # Two convs (2 x 9C multiply-adds per output), two bias adds, two
         # relus and the skip add per output element.
@@ -679,7 +624,7 @@ def fused_scalars(x):
 def phase_fused_loss(device):
     import torch
 
-    from torched_impala_tpu_torch.ops import fused_loss, fused_loss_cuda, losses
+    from torched_impala_tpu_torch.ops import fused_loss, fused_loss_cuda, losses, profiling
     from torched_impala_tpu_torch.ops.vtrace import threshold
 
     worst_tb, worst_sum_rel, per_shape = 0.0, 0.0, {}
@@ -739,7 +684,7 @@ def phase_fused_loss(device):
     args = fused_scalars(loss_inputs(T, B, A, seed=7, device=device))
     kernel_ms = time_cuda(lambda: fused_loss_cuda.fused_sums_cuda(*args))
     plain_ms = time_cuda(lambda: fused_loss.fused_sums_reference(*args))
-    device_us, _ = profiled_device_us(
+    device_us, _ = profiling.device_us(
         lambda: fused_loss_cuda.fused_sums_cuda(*args), name="fused_loss_kernel"
     )
     # Seven [T, B] inputs and the bootstrap read, vs, adv and one row of
@@ -829,7 +774,7 @@ def phase_attention(device):
     import torch.nn.functional as F
 
     from torched_impala_tpu_torch.models.transformer import einsum_attention
-    from torched_impala_tpu_torch.ops import attention, attention_cuda
+    from torched_impala_tpu_torch.ops import attention, attention_cuda, profiling
 
     def kernel_vs_plain(x, bf16=False):
         """Max abs errors of the three kernels against their plain
@@ -942,7 +887,7 @@ def phase_attention(device):
                 "dq": lambda: attention_cuda.attention_dq_cuda(*bwd),
                 "dkv": lambda: attention_cuda.attention_dkv_cuda(*bwd),
             }[name]
-            t[f"{name}_device_us_profiler"], _ = profiled_device_us(fn, calls=10, name=kname)
+            t[f"{name}_device_us_profiler"], _ = profiling.device_us(fn, calls=10, name=kname)
         B, T, H, dh, W = shape
         work = attention_work(x, itemsize=4)
         for name in ("fwd", "dq", "dkv"):
@@ -1048,6 +993,7 @@ def drive(name, cfg, steps, device):
     import torch
 
     from torched_impala_tpu_torch import configs
+    from torched_impala_tpu_torch.ops import profiling
     from torched_impala_tpu_torch.runtime import loop
     from torched_impala_tpu_torch.runtime.vector_actor import VectorActor
 
@@ -1102,7 +1048,7 @@ def drive(name, cfg, steps, device):
     T, B = cfg.unroll_length, cfg.batch_size
     batch = fixed_batch(cfg, device, agent.net.initial_state(B))
     step_ms = time_cuda(lambda: learner.train_step(batch), iters=20, warmup=3)
-    step_device_us, step_kernels = profiled_device_us(
+    step_device_us, step_kernels = profiling.device_us(
         lambda: learner.train_step(batch), calls=10
     )
 
@@ -1143,7 +1089,7 @@ def drive(name, cfg, steps, device):
         )
 
     t0 = time.perf_counter()
-    busy_us, _ = profiled_device_us(short_run, calls=1)
+    busy_us, _ = profiling.device_us(short_run, calls=1)
     profiled_wall_us = (time.perf_counter() - t0) * 1e6
     emit(
         {

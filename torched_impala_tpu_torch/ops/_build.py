@@ -39,24 +39,26 @@ def kernel_names() -> list[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def build_dir() -> Path:
+def build_dir(csrc: Path = CSRC) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC.iterdir()):
+    for path in sorted(csrc.iterdir()):
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
-def build_all(names: list[str]) -> dict[str, Path]:
-    """Compile every kernel of `names` not built yet, one nvcc process per
-    source, all running at once; return each kernel's library path."""
-    out_dir = build_dir()
+def build_all(names: list[str], csrc: Path = CSRC) -> dict[str, Path]:
+    """Compile every kernel of `names` from `csrc` not built yet, one nvcc
+    process per source, all running at once; return each kernel's library
+    path. Another tree's sources (`csrc`) build beside this checkout's,
+    under the hash of that tree."""
+    out_dir = build_dir(csrc)
     libs = {name: out_dir / f"lib{name}.so" for name in names}
     running = []
     for name, lib in libs.items():
         if lib.exists():
             continue
-        src = CSRC / f"{name}.cu"
+        src = csrc / f"{name}.cu"
         if not src.exists():
             raise FileNotFoundError(f"no CUDA source for kernel {name!r}: {src}")
         lib.parent.mkdir(parents=True, exist_ok=True)

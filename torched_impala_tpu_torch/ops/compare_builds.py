@@ -6,11 +6,11 @@ kernels built from another source tree, in turns on one card.
 BASE_CSRC is another tree's `torched_impala_tpu_torch/csrc` (for example
 a parent commit's, unpacked with `git archive <rev>
 torched_impala_tpu_torch/csrc | tar -x -C DIR`). Its kernels must have
-the same C entry points as this checkout's. Both trees are built with
-the port's nvcc flags under `build/compare/`, one nvcc per source, all
-at once. Each kernel is then timed by the profiler's device time (mean
-of 100 calls) at the presets' shapes, in the order base, this, this,
-base, so that both builds see the same card and clocks: the LSTM cell
+the same C entry points as this checkout's. Both trees are built by
+`_build.build_all`, each under the hash of its own sources. Each kernel
+is then timed by the profiler's device time (mean of 100 calls) at the
+presets' shapes, in the order base, this, this, base, so that both
+builds see the same card and clocks: the LSTM cell
 at the Breakout learner's (B, F, H) = (32, 256, 256) and its actors'
 (8, 256, 256), and the attention forward, dQ and dK/dV at the
 pong_transformer learner's (B, T, H, dh, W) = (32, 21, 4, 64, 128).
@@ -29,7 +29,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from torched_impala_tpu_torch.ops import _build, attention, attention_cuda, lstm_cuda
+from torched_impala_tpu_torch.ops import _build, attention, attention_cuda, lstm_cuda, profiling
 
 LSTM_SHAPES = [(32, 256, 256), (8, 256, 256)]  # B, F, H
 ATTN_SHAPE = (32, 21, 4, 64, 128)  # B, T, H, dh, W
@@ -41,24 +41,12 @@ SIGNATURES = {
 CALLS = 100
 
 
-def build(csrc: Path, out: Path) -> dict[str, ctypes.CDLL]:
-    """The three kernels of `csrc`, compiled into `out` and loaded."""
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {
-        name: subprocess.Popen(
-            ["nvcc", *_build.NVCC_FLAGS, "-o", str(out / f"lib{name}.so"), str(csrc / f"{name}.cu")],
-            stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT,
-            text=True,
-        )
-        for name in SOURCES
-    }
+def load(csrc: Path) -> dict[str, ctypes.CDLL]:
+    """The three kernels of `csrc`, built (`_build.build_all`) and loaded
+    with their entry points' signatures."""
     libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {csrc / name}.cu:\n{log}")
-        lib = ctypes.CDLL(str(out / f"lib{name}.so"))
+    for name, path in _build.build_all(list(SOURCES), csrc).items():
+        lib = ctypes.CDLL(str(path))
         for fn_name, argtypes in SIGNATURES[name].items():
             getattr(lib, fn_name).argtypes = argtypes
             getattr(lib, fn_name).restype = ctypes.c_int
@@ -68,23 +56,11 @@ def build(csrc: Path, out: Path) -> dict[str, ctypes.CDLL]:
 
 def device_us(fn, kernel: str) -> float:
     """Mean device µs a call of `fn` spends in kernels named `kernel`."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(CALLS):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(
-        e.self_device_time_total
-        for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and kernel in e.key
-    )
-    if not total:
+    us, _ = profiling.device_us(fn, calls=CALLS, name=kernel)
+    if us is None:
         raise RuntimeError(f"the profiler saw no device time in {kernel}")
-    return total / CALLS
+    return us
 
 
 def _check(rc: int, what: str) -> None:
@@ -150,9 +126,8 @@ def main(argv=None) -> int:
     from torched_impala_tpu_torch import resolve_device
 
     device = resolve_device()
-    root = _build.BUILD_ROOT.parent / "compare"
     trees = {"base": Path(argv[0]), "this": _build.CSRC}
-    libs = {label: build(csrc, root / label) for label, csrc in trees.items()}
+    libs = {label: load(csrc) for label, csrc in trees.items()}
     times: dict[str, dict[str, list[float]]] = {}
     for name, (kernel, fn) in workloads(device).items():
         for label in ("base", "this", "this", "base"):
