@@ -41,18 +41,23 @@ non-zero (no phase's failure is caught):
    loss through the kernel against the loss through the plain sums,
    reductions sum and mean (logs and gradients rtol 1e-5); times and
    bound at the Pong shape (no single PyTorch call computes it).
-7. attention: the forward, dQ and dK/dV kernels against their plain
-   versions at the learner's shape (B=32, T=21, H=4, dh=64, W=128:
-   S=149, episodes that reset mid-unroll, a cache partly of an older
-   episode or empty), a long one (B=2, T=1024) and ragged ones (T=1 with
-   W=0; dh 16 and 32), and head widths 8 and 128 in f32 and bf16: f32
-   forward <= 2e-5 absolute (TF32 off),
-   gradients rtol 1e-4, atol 1e-5 x the largest gradient, bf16 within
-   one bf16 rounding; bf16 dtypes through the autograd.Function. Times
-   of each kernel and its plain version at the learner and long shapes,
+7. attention: the backward kernel's machine code holds `HMMA`
+   (mma.sync) instructions in every instantiation; the forward and the
+   backward (one call: dq, dk and dv) against their plain versions at the
+   learner's shape (B=32, T=21, H=4, dh=64, W=128: S=149, episodes that
+   reset mid-unroll, a cache partly of an older episode or empty), a long
+   one (B=2, T=1024), ragged ones (T=1 with W=0; dh 16 and 32) and head
+   widths 8 and 128, each in f32 and bf16: f32 forward <= 2e-5 absolute
+   (TF32 off), gradients rtol 1e-4, atol 1e-5 x the largest gradient,
+   bf16 within one bf16 rounding; bf16 dtypes through the
+   autograd.Function; two backward launches bit-identical at the learner
+   and long shapes. Times of each call and its plain version at those two
+   shapes (events, and device time with every kernel of the call summed),
    bounds, `F.scaled_dot_product_attention` with the same boolean mask as
-   a yardstick, and fwd + bwd of the kernels against the einsum branch:
-   the measurement behind configs.KERNEL_MIN_SCORE_ELEMS.
+   the yardstick (its forward alone and its backward alone, events and
+   device time, and the kernels it runs), and fwd + bwd of the kernels
+   against the einsum branch: the measurement behind
+   configs.KERNEL_MIN_SCORE_ELEMS.
 8. model: the Pong net, the Breakout net (deep torso + LSTM, fused
    blocks off and on) and the pong_transformer net (kernel branch, from
    a warm cache) on the card against the same nets on the CPU, f32 (TF32
@@ -70,9 +75,9 @@ non-zero (no phase's failure is caught):
 11. pong_transformer: the same with the PONG_TRANSFORMER preset
    (Nature-CNN bf16 torso, transformer core d_model 256, 2 layers, 4
    heads, window 128) for 12 learner steps with the attention kernels
-   forced and `fused_epilogue=True`; it must launch each attention
-   kernel >= 2 times a learner step, the fused loss >= once and V-trace
-   never.
+   forced and `fused_epilogue=True`; it must launch the attention
+   forward and backward >= 2 times a learner step each, the fused loss
+   >= once and V-trace never.
 
 Then the `kernels` line, the card's name and power limit, and the last
 line `{"ok": true, "device": {...}}`. Without CUDA it exits 2 and prints
@@ -749,9 +754,9 @@ def attention_work(x, itemsize):
     every input read once and every output written once; each product
     (q.k, dO.v, P v, dS k, dS q, P dO) counts 2 dh operations for each
     visible (query, slot) pair of this data, the pairs the kernels do not
-    skip."""
-    import torch
-
+    skip. "bwd" is `_bwd_pallas`'s work, whatever implements it: q, dO and
+    the f32 O (for D), k, v, lse and the segments in; dq, dk, dv out; five
+    products."""
     from torched_impala_tpu_torch.ops import attention
 
     B, T, H, dh = x["q"].shape
@@ -759,39 +764,77 @@ def attention_work(x, itemsize):
     visible = int(attention._visibility(x["seg_q"], x["seg_ctx"], T, S, x["W"]).sum())
     q = B * T * H * dh * itemsize
     kv = B * S * H * dh * itemsize
+    q32, kv32 = B * T * H * dh * 4, B * S * H * dh * 4
     segs = B * (T + S) * 4
-    rows = B * H * T * 4  # lse, or D
+    rows = B * H * T * 4  # lse
     pair = 2 * H * dh * visible
     return {
-        "fwd": (q + 2 * kv + segs + B * T * H * dh * 4 + rows, 2 * pair),
-        "dq": (2 * q + 2 * kv + segs + 2 * rows + B * T * H * dh * 4, 3 * pair),
-        "dkv": (2 * q + 2 * kv + segs + 2 * rows + 2 * B * S * H * dh * 4, 4 * pair),
+        "fwd": (q + 2 * kv + segs + q32 + rows, 2 * pair),
+        "bwd": (2 * q + q32 + 2 * kv + segs + rows + q32 + 2 * kv32, 5 * pair),
     }
+
+
+def sdpa_yardstick(x, device_calls):
+    """`F.scaled_dot_product_attention` with the same boolean mask, on
+    [B, H, T, dh] copies of the inputs (never on the port's path): the
+    device µs of its forward alone and of its backward alone (the gradient
+    of a saved graph, `retain_graph=True`), the backward's event ms, and
+    the kernels each runs."""
+    import torch
+    import torch.nn.functional as F
+
+    from torched_impala_tpu_torch.ops import attention, profiling
+
+    T, S = x["q"].shape[1], x["k"].shape[1]
+    mask = attention._visibility(x["seg_q"], x["seg_ctx"], T, S, x["W"])[:, None]
+    qh, kh, vh = (x[k].transpose(1, 2).contiguous().requires_grad_() for k in ("q", "k", "v"))
+    gh = x["g"].transpose(1, 2).contiguous()
+    out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+
+    def fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+
+    def bwd():
+        torch.autograd.grad(out, (qh, kh, vh), gh, retain_graph=True)
+
+    result = {}
+    for name, fn in (("fwd", fwd), ("bwd", bwd)):
+        result[f"sdpa_{name}_ms"] = time_cuda(fn, iters=device_calls, warmup=5)
+        kernels = profiling.device_us_by_kernel(fn, calls=device_calls)
+        result[f"sdpa_{name}_device_us"] = sum(kernels.values())
+        result[f"sdpa_{name}_kernels"] = sorted(kernels)
+    return result
 
 
 def phase_attention(device):
     import torch
-    import torch.nn.functional as F
 
     from torched_impala_tpu_torch.models.transformer import einsum_attention
-    from torched_impala_tpu_torch.ops import attention, attention_cuda, profiling
+    from torched_impala_tpu_torch.ops import _build, attention, attention_cuda, profiling
+
+    # The backward runs on the tensor cores: every instantiation of its
+    # kernel holds mma.sync (HMMA) instructions.
+    hmma = {
+        fn: n for fn, n in _build.sass_counts("attention_bwd", "HMMA").items()
+        if "attention_bwd_kernel" in fn
+    }
+    if len(hmma) != 10 or min(hmma.values()) == 0:
+        raise AssertionError(f"attention_bwd: HMMA counts {hmma}")
 
     def kernel_vs_plain(x, bf16=False):
-        """Max abs errors of the three kernels against their plain
-        versions on the same inputs; raises past the gates."""
+        """Max abs errors of the forward and the backward against their
+        plain versions on the same inputs; raises past the gates."""
         args = (x["q"], x["k"], x["v"], x["seg_q"], x["seg_ctx"], x["W"])
         out, lse = attention_cuda.attention_forward_cuda(*args)
         ref_out, ref_lse = attention.windowed_attention_reference(*args)
-        # The backward kernels read the plain forward's output and lse, so
-        # each is held to its plain version on identical inputs.
-        dcap = attention.row_term(ref_out, x["g"])
-        bwd = (x["q"], x["k"], x["v"], x["g"], ref_lse, dcap, x["seg_q"], x["seg_ctx"], x["W"])
-        dq = attention_cuda.attention_dq_cuda(*bwd)
-        dk, dv = attention_cuda.attention_dkv_cuda(*bwd)
-        ref_dq = attention.attention_dq_reference(*bwd)
-        ref_dk, ref_dv = attention.attention_dkv_reference(*bwd)
+        # The backward reads the plain forward's output and lse, so it is
+        # held to its plain version on identical inputs.
+        bwd = (x["q"], x["k"], x["v"], x["g"], ref_out, ref_lse, x["seg_q"], x["seg_ctx"], x["W"])
+        grads = attention_cuda.attention_backward_cuda(*bwd)
+        refs = attention.windowed_attention_backward_reference(*bwd)
         torch.cuda.synchronize()
-        for a in (out, lse, dq, dk, dv):
+        for a in (out, lse, *grads):
             if not torch.isfinite(a).all():
                 raise AssertionError("attention kernel: non-finite output")
         if bf16:
@@ -803,20 +846,15 @@ def phase_attention(device):
         errs = {"fwd": max(float((out - ref_out).abs().max()), float((lse - ref_lse).abs().max()))}
         # atol scales with the largest gradient of the three: at T = 1,
         # W = 0 dq is 0 in exact arithmetic and only rounding is left.
-        scale = max(float(a.abs().max()) for a in (ref_dq, ref_dk, ref_dv))
-        for name, got, want in (("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
+        scale = max(float(a.abs().max()) for a in refs)
+        for name, got, want in zip(("dq", "dk", "dv"), grads, refs):
             tol = dict(rtol=BF16_ULP, atol=BF16_ULP * scale) if bf16 else dict(rtol=1e-4, atol=1e-5 * scale)
             torch.testing.assert_close(got, want, **tol)
             errs[name] = float((got - want).abs().max())
         return errs
 
     errors = {}
-    for shape in (ATTN_LEARNER, ATTN_LONG, *ATTN_RAGGED):
-        errors["x".join(map(str, shape))] = kernel_vs_plain(attention_inputs(*shape, seed=sum(shape), device=device))
-    errors["bf16_" + "x".join(map(str, ATTN_LEARNER))] = kernel_vs_plain(
-        attention_inputs(*ATTN_LEARNER, seed=1, device=device, dtype="bfloat16"), bf16=True
-    )
-    for shape in ATTN_WIDTHS:
+    for shape in (ATTN_LEARNER, ATTN_LONG, *ATTN_RAGGED, *ATTN_WIDTHS):
         label = "x".join(map(str, shape))
         errors[label] = kernel_vs_plain(attention_inputs(*shape, seed=sum(shape), device=device))
         errors["bf16_" + label] = kernel_vs_plain(
@@ -830,40 +868,37 @@ def phase_attention(device):
     if out.dtype != torch.bfloat16 or any(g.dtype != torch.bfloat16 for g in grads):
         raise AssertionError("attention: bf16 inputs must give bf16 output and grads")
 
-    def per_kernel_max(key):
+    def per_kernel_max(keys):
         """The f32 cases' largest error (the main path runs f32)."""
-        return max(e[key] for shape, e in errors.items() if not shape.startswith("bf16"))
-
-    def visibility_mask(x):
-        T, S = x["q"].shape[1], x["k"].shape[1]
-        return attention._visibility(x["seg_q"], x["seg_ctx"], T, S, x["W"])
+        return max(e[k] for shape, e in errors.items() if not shape.startswith("bf16") for k in keys)
 
     times, checked = {}, {}
     for label, shape in (("learner", ATTN_LEARNER), ("long", ATTN_LONG)):
+        B, T, H, dh, W = shape
         x = attention_inputs(*shape, seed=3, device=device)
         args = (x["q"], x["k"], x["v"], x["seg_q"], x["seg_ctx"], x["W"])
         out, lse = attention.windowed_attention_reference(*args)
-        bwd = (x["q"], x["k"], x["v"], x["g"], lse, attention.row_term(out, x["g"]),
-               x["seg_q"], x["seg_ctx"], x["W"])
+        bwd = (x["q"], x["k"], x["v"], x["g"], out, lse, x["seg_q"], x["seg_ctx"], x["W"])
+        # Deterministic: a second launch on the same inputs is bit-identical.
+        first, again = (attention_cuda.attention_backward_cuda(*bwd) for _ in range(2))
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            raise AssertionError(f"attention_bwd: two launches differ at {shape}")
         iters = 50 if label == "learner" else 10
         t = dict(
             fwd=time_cuda(lambda: attention_cuda.attention_forward_cuda(*args), iters=iters, warmup=5),
             fwd_plain=time_cuda(lambda: attention.windowed_attention_reference(*args), iters=iters, warmup=5),
-            dq=time_cuda(lambda: attention_cuda.attention_dq_cuda(*bwd), iters=iters, warmup=5),
-            dq_plain=time_cuda(lambda: attention.attention_dq_reference(*bwd), iters=iters, warmup=5),
-            dkv=time_cuda(lambda: attention_cuda.attention_dkv_cuda(*bwd), iters=iters, warmup=5),
-            dkv_plain=time_cuda(lambda: attention.attention_dkv_reference(*bwd), iters=iters, warmup=5),
+            bwd=time_cuda(lambda: attention_cuda.attention_backward_cuda(*bwd), iters=iters, warmup=5),
+            bwd_plain=time_cuda(
+                lambda: attention.windowed_attention_backward_reference(*bwd), iters=iters, warmup=5
+            ),
+            bwd_tiles=attention_cuda.bwd_tiles(W + T, dh),
         )
         # The yardstick (never on the path): SDPA with the same boolean mask.
-        mask = visibility_mask(x)[:, None]
-        qh, kh, vh = (x[k].transpose(1, 2) for k in ("q", "k", "v"))
-        t["sdpa_fwd"] = time_cuda(
-            lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask), iters=iters, warmup=5
-        )
+        t.update(sdpa_yardstick(x, device_calls=iters))
         # fwd + bwd of the kernel path against the einsum branch: the
         # measurement behind configs.KERNEL_MIN_SCORE_ELEMS.
         leaves = [x[k].clone().requires_grad_() for k in ("q", "k", "v")]
-        emask = visibility_mask(x)
+        emask = attention._visibility(x["seg_q"], x["seg_ctx"], T, W + T, W)
 
         def kernel_fwd_bwd():
             o = attention.windowed_attention(*leaves, x["seg_q"], x["seg_ctx"], x["W"])
@@ -873,37 +908,32 @@ def phase_attention(device):
             o = einsum_attention(*leaves, emask)
             torch.autograd.grad(o, leaves, x["g"])
 
-        def sdpa_fwd_bwd():
-            o = F.scaled_dot_product_attention(*(a.transpose(1, 2) for a in leaves), attn_mask=mask)
-            torch.autograd.grad(o, leaves, x["g"].transpose(1, 2))
-
         t["kernel_fwd_bwd"] = time_cuda(kernel_fwd_bwd, iters=iters, warmup=5)
         t["einsum_fwd_bwd"] = time_cuda(einsum_fwd_bwd, iters=iters, warmup=5)
-        t["sdpa_fwd_bwd"] = time_cuda(sdpa_fwd_bwd, iters=iters, warmup=5)
-        for name, kname in (("fwd", "attention_fwd_kernel"), ("dq", "attention_dq_kernel"),
-                            ("dkv", "attention_dkv_kernel")):
-            fn = {
-                "fwd": lambda: attention_cuda.attention_forward_cuda(*args),
-                "dq": lambda: attention_cuda.attention_dq_cuda(*bwd),
-                "dkv": lambda: attention_cuda.attention_dkv_cuda(*bwd),
-            }[name]
-            t[f"{name}_device_us_profiler"], _ = profiling.device_us(fn, calls=10, name=kname)
-        B, T, H, dh, W = shape
+        # Device time of each call, every kernel inside it summed (the
+        # backward's second kernel too, where it runs).
+        for name, fn, kname in (
+            ("fwd", lambda: attention_cuda.attention_forward_cuda(*args), "attention_fwd"),
+            ("bwd", lambda: attention_cuda.attention_backward_cuda(*bwd), "attention_bwd"),
+        ):
+            t[f"{name}_device_us_profiler"], t[f"{name}_kernels_a_call"] = profiling.device_us(
+                fn, calls=10, name=kname
+            )
         work = attention_work(x, itemsize=4)
-        for name in ("fwd", "dq", "dkv"):
+        for name in ("fwd", "bwd"):
             t[f"{name}_bound_ms"], t[f"{name}_bound_by"] = bound(*work[name], PEAK_F32_OPS_PER_S)
         t["score_elems"] = T * (W + T)
         times[label] = t
         if label == "learner":
             checked = {
                 name: dict(
-                    max_abs_err=per_kernel_max(name) if name != "dkv" else max(per_kernel_max("dk"), per_kernel_max("dv")),
-                    ms=t[name], plain_ms=t[f"{name}_plain"], bound_ms=t[f"{name}_bound_ms"],
-                    bound_by=t[f"{name}_bound_by"], library_ms=t["sdpa_fwd"] if name == "fwd" else None,
+                    max_abs_err=per_kernel_max(keys), ms=t[name], plain_ms=t[f"{name}_plain"],
+                    bound_ms=t[f"{name}_bound_ms"], bound_by=t[f"{name}_bound_by"],
+                    library_ms=t[f"sdpa_{name}_ms"],
                 )
-                for name in ("fwd", "dq", "dkv")
+                for name, keys in (("fwd", ("fwd",)), ("bwd", ("dq", "dk", "dv")))
             }
-    emit({"phase": "attention", "max_abs_err_by_shape": errors, "times_ms": times})
+    emit({"phase": "attention", "hmma": hmma, "max_abs_err_by_shape": errors, "times_ms": times})
     return {f"attention_{k}": v for k, v in checked.items()}
 
 
@@ -1204,7 +1234,7 @@ def phase_pong_transformer(device):
     # Each learner step unrolls the two layers over T + 1 = 21 queries
     # (the actors' T = 1 steps take the einsum branch) and runs the fused
     # loss in place of V-trace.
-    for key in ("attention_fwd", "attention_dq", "attention_dkv"):
+    for key in ("attention_fwd", "attention_bwd"):
         if launches[key] < cfg.transformer_layers * steps:
             raise AssertionError(f"pong_transformer: {launches[key]} {key} launches < 2 a step")
     if launches["fused_loss"] < steps:
@@ -1242,18 +1272,15 @@ def main() -> int:
         "resblock": phase_breakout(device, fused=True)["resblock"],
     }
     transformer_launches = phase_pong_transformer(device)
-    for name in ("fused_loss", "attention_fwd", "attention_dq", "attention_dkv"):
+    for name in ("fused_loss", "attention_fwd", "attention_bwd"):
         launches[name] = transformer_launches[name]
-    source = {name: name for name in ("vtrace", "lstm_cell", "resblock", "fused_loss", "attention_fwd")}
-    source.update(attention_dq="attention_bwd", attention_dkv="attention_bwd")
     replaces = {
         "vtrace": "torched_impala_tpu/ops/vtrace_pallas.py:92",
         "lstm_cell": "torched_impala_tpu/ops/lstm_pallas.py:78",
         "resblock": "torched_impala_tpu/ops/conv_pallas.py:76",
         "fused_loss": "torched_impala_tpu/ops/vtrace_pallas.py:267",
         "attention_fwd": "torched_impala_tpu/ops/attention_pallas.py:251",
-        "attention_dq": "torched_impala_tpu/ops/attention_pallas.py:438",
-        "attention_dkv": "torched_impala_tpu/ops/attention_pallas.py:458",
+        "attention_bwd": "torched_impala_tpu/ops/attention_pallas.py:409",
     }
     emit(
         {
@@ -1261,7 +1288,7 @@ def main() -> int:
                 {
                     "name": name,
                     "route": "cuda",
-                    "source": f"torched_impala_tpu_torch/csrc/{source[name]}.cu",
+                    "source": f"torched_impala_tpu_torch/csrc/{name}.cu",
                     "replaces": replaces[name],
                     "launches": launches[name],
                     **{

@@ -571,9 +571,9 @@ def _attention_vs_plain(args, bf16):
     q, k, v, seg_q, seg_ctx, W, g = args
     out, lse = attention_cuda.attention_forward_cuda(q, k, v, seg_q, seg_ctx, W)
     ref_out, ref_lse = attention.windowed_attention_reference(q, k, v, seg_q, seg_ctx, W)
-    bwd = (q, k, v, g, ref_lse, attention.row_term(ref_out, g), seg_q, seg_ctx, W)
-    grads = (attention_cuda.attention_dq_cuda(*bwd), *attention_cuda.attention_dkv_cuda(*bwd))
-    refs = (attention.attention_dq_reference(*bwd), *attention.attention_dkv_reference(*bwd))
+    bwd = (q, k, v, g, ref_out, ref_lse, seg_q, seg_ctx, W)
+    grads = attention_cuda.attention_backward_cuda(*bwd)
+    refs = attention.windowed_attention_backward_reference(*bwd)
     torch.cuda.synchronize()
     ulp = 2.0**-7
     fwd_tol = dict(rtol=ulp, atol=ulp) if bf16 else dict(rtol=0.0, atol=2e-5)
@@ -592,7 +592,7 @@ def test_attention_kernels_match_reference(cuda, shape):
 
     before = dict(attention_cuda.LAUNCHES)
     _attention_vs_plain(_attn_inputs(*shape, seed=sum(shape), device=cuda), bf16=False)
-    assert {k: v - before[k] for k, v in attention_cuda.LAUNCHES.items()} == {"fwd": 1, "dq": 1, "dkv": 1}
+    assert {k: v - before[k] for k, v in attention_cuda.LAUNCHES.items()} == {"fwd": 1, "bwd": 1}
 
 
 @pytest.mark.gpu
@@ -619,7 +619,7 @@ def test_attention_kernels_match_reference_at_any_head_width(cuda, dh, dtype):
     before = dict(attention_cuda.LAUNCHES)
     args = _attn_inputs(2, 40, 2, dh, 19, seed=dh, device=cuda, dtype=dtype)
     _attention_vs_plain(args, bf16=dtype == torch.bfloat16)
-    assert {k: v - before[k] for k, v in attention_cuda.LAUNCHES.items()} == {"fwd": 1, "dq": 1, "dkv": 1}
+    assert {k: v - before[k] for k, v in attention_cuda.LAUNCHES.items()} == {"fwd": 1, "bwd": 1}
 
 
 @pytest.mark.gpu
@@ -631,13 +631,107 @@ def test_attention_autograd_through_kernels(cuda):
     before = dict(attention_cuda.LAUNCHES)
     out = attention.windowed_attention(*leaves, seg_q, seg_ctx, W)
     grads = torch.autograd.grad(out, leaves, g)
-    assert {k: v - before[k] for k, v in attention_cuda.LAUNCHES.items()} == {"fwd": 1, "dq": 1, "dkv": 1}
+    assert {k: v - before[k] for k, v in attention_cuda.LAUNCHES.items()} == {"fwd": 1, "bwd": 1}
     ref_out, lse = attention.windowed_attention_reference(q, k, v, seg_q, seg_ctx, W)
     refs = attention.windowed_attention_backward_reference(q, k, v, g, ref_out, lse, seg_q, seg_ctx, W)
     torch.testing.assert_close(out, ref_out, rtol=0.0, atol=2e-5)
     scale = max(float(r.abs().max()) for r in refs)
     for a, b in zip(grads, refs):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * scale)
+
+
+def _attention_bwd_args(shape, seed, device):
+    from torched_impala_tpu_torch.ops import attention
+
+    q, k, v, seg_q, seg_ctx, W, g = _attn_inputs(*shape, seed=seed, device=device)
+    out, lse = attention.windowed_attention_reference(q, k, v, seg_q, seg_ctx, W)
+    return q, k, v, g, out, lse, seg_q, seg_ctx, W
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,kernels", [(ATTN_SHAPES[0], 1), (ATTN_SHAPES[1], 2)], ids=str)
+def test_attention_backward_one_or_more_key_tiles(cuda, shape, kernels):
+    """The learner's context (S = 149) is one key tile: one launch writes
+    dq. A longer one (S = 428) takes several: their dQ shares are summed
+    by a second launch. Both match the plain version, and two calls are
+    bit-identical (no atomics)."""
+    from torched_impala_tpu_torch.ops import attention, attention_cuda, profiling
+
+    args = _attention_bwd_args(shape, seed=5, device=cuda)
+    S, dh = args[1].shape[1], args[1].shape[3]
+    tiles = -(-S // (attention_cuda.BWD_ROWS * attention_cuda.bwd_tiles(S, dh)[0]))
+    assert (tiles == 1) == (kernels == 1)
+    first = attention_cuda.attention_backward_cuda(*args)
+    again = attention_cuda.attention_backward_cuda(*args)
+    refs = attention.windowed_attention_backward_reference(*args)
+    torch.cuda.synchronize()
+    scale = max(float(r.abs().max()) for r in refs)
+    for a, b, r in zip(first, again, refs):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-5 * scale)
+    _, launched = profiling.device_us(lambda: attention_cuda.attention_backward_cuda(*args),
+                                      calls=3, name="attention_bwd")
+    assert launched == kernels
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan", [(1, 3), (2, 2), (3, 1)], ids=str)
+def test_attention_backward_at_other_tile_plans(cuda, plan, monkeypatch):
+    """Query groups (their dK and dV added in shared memory) and small key
+    tiles give the plain version's gradients too."""
+    from torched_impala_tpu_torch.ops import attention, attention_cuda
+
+    monkeypatch.setattr(attention_cuda, "bwd_tiles", lambda S, dh: plan)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, seg_q, seg_ctx, W, g = _attn_inputs(5, 40, 3, 32, 19, seed=6, device=cuda, dtype=dtype)
+        _attention_vs_plain((q, k, v, seg_q, seg_ctx, W, g), bf16=dtype == torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_attention_backward_concurrent_launches(cuda):
+    """Two threads launch the backward at once, one at the learner's shape
+    and one with several key tiles, 20 times each: no launch is refused
+    (the kernel's shared-memory ceiling is set once), and every result is
+    the first one's, bit for bit."""
+    import threading
+
+    from torched_impala_tpu_torch.ops import attention_cuda
+
+    cases = [_attention_bwd_args(ATTN_SHAPES[0], seed=7, device=cuda),
+             _attention_bwd_args(ATTN_SHAPES[1], seed=8, device=cuda)]
+    outs, errors = [[], []], []
+    start = threading.Barrier(len(cases))
+
+    def launch(i):
+        try:
+            start.wait()
+            for _ in range(20):
+                outs[i].append(attention_cuda.attention_backward_cuda(*cases[i]))
+            torch.cuda.synchronize()
+        except Exception as e:  # raised again below, in the test's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=launch, args=(i,)) for i in range(len(cases))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    for runs in outs:
+        assert len(runs) == 20
+        for run in runs[1:]:
+            assert all(torch.equal(a, b) for a, b in zip(run, runs[0]))
+
+
+@pytest.mark.gpu
+def test_attention_backward_runs_on_tensor_cores(cuda):
+    """Every instantiation of the backward kernel holds mma.sync (HMMA)
+    instructions; the dQ sum kernel holds none."""
+    from torched_impala_tpu_torch.ops import _build
+
+    counts = _build.sass_counts("attention_bwd", "HMMA")
+    kernels = {fn: n for fn, n in counts.items() if "attention_bwd_kernel" in fn}
+    assert len(kernels) == 10 and min(kernels.values()) > 0, counts
 
 
 @pytest.mark.gpu
@@ -657,6 +751,11 @@ def test_attention_and_fused_loss_wrappers_refuse_bad_inputs_on_cuda(cuda):
                                               k, v, seg_q, seg_ctx, W)
     with pytest.raises(ValueError, match="outside"):
         attention_cuda.attention_forward_cuda(q, k, v, seg_q, seg_ctx, k.shape[1] + 1)
+    out, lse = attention_cuda.attention_forward_cuda(q, k, v, seg_q, seg_ctx, W)
+    with pytest.raises(ValueError, match="o must be float32"):
+        attention_cuda.attention_backward_cuda(q, k, v, g, out.bfloat16(), lse, seg_q, seg_ctx, W)
+    with pytest.raises(ValueError, match="lse has shape"):
+        attention_cuda.attention_backward_cuda(q, k, v, g, out, lse[:, :1], seg_q, seg_ctx, W)
     args = _fused_args(6, 4, seed=0, device=cuda)
     with pytest.raises(ValueError, match="float32"):
         fused_loss_cuda.fused_sums_cuda(*args[:7], args[7].double())
@@ -680,13 +779,10 @@ def test_wrappers_refuse_cpu_tensors():
         fused_loss_cuda.fused_sums_cuda(*_fused_args(3, 2, seed=0, device="cpu"))
     q, k, v, seg_q, seg_ctx, W, g = _attn_inputs(2, 5, 2, 16, 3, seed=0, device="cpu")
     out, lse = attention.windowed_attention_reference(q, k, v, seg_q, seg_ctx, W)
-    bwd = (q, k, v, g, lse, attention.row_term(out, g), seg_q, seg_ctx, W)
     with pytest.raises(ValueError, match="CUDA tensor"):
         attention_cuda.attention_forward_cuda(q, k, v, seg_q, seg_ctx, W)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        attention_cuda.attention_dq_cuda(*bwd)
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        attention_cuda.attention_dkv_cuda(*bwd)
+        attention_cuda.attention_backward_cuda(q, k, v, g, out, lse, seg_q, seg_ctx, W)
 
 
 def test_attention_wrappers_refuse_heads_above_the_limit():
@@ -697,14 +793,30 @@ def test_attention_wrappers_refuse_heads_above_the_limit():
     assert attention_cuda.MAX_HEAD_DIM == 256
     q, k, v, seg_q, seg_ctx, W, g = _attn_inputs(2, 5, 2, 257, 3, seed=0, device="cpu")
     out, lse = attention.windowed_attention_reference(q, k, v, seg_q, seg_ctx, W)
-    bwd = (q, k, v, g, lse, attention.row_term(out, g), seg_q, seg_ctx, W)
     match = "head width 257 above the kernels' limit of 256"
     with pytest.raises(ValueError, match=match):
         attention_cuda.attention_forward_cuda(q, k, v, seg_q, seg_ctx, W)
     with pytest.raises(ValueError, match=match):
-        attention_cuda.attention_dq_cuda(*bwd)
-    with pytest.raises(ValueError, match=match):
-        attention_cuda.attention_dkv_cuda(*bwd)
+        attention_cuda.attention_backward_cuda(q, k, v, g, out, lse, seg_q, seg_ctx, W)
+
+
+@pytest.mark.parametrize(
+    "S,dh,plan",
+    [(149, 64, (10, 1)), (192, 64, (12, 1)), (193, 64, (4, 3)), (1152, 64, (4, 3)),
+     (16, 8, (1, 1)), (149, 128, (4, 1)), (96, 128, (6, 1)), (48, 256, (3, 1)),
+     (149, 256, (3, 1))],
+)
+def test_attention_backward_tile_plan(S, dh, plan):
+    """One key tile over the whole context where a block's warps cover it
+    (the learner's S = 149: one launch), else 4 key warps x 3 query groups,
+    within the 12 warps a block has (fewer key warps at dh > 64, where
+    warps split the columns)."""
+    from torched_impala_tpu_torch.ops import attention_cuda
+
+    assert attention_cuda.bwd_tiles(S, dh) == plan
+    key_warps, query_groups = plan
+    dp = next(p for p in (16, 32, 64, 128, 256) if dh <= p)
+    assert key_warps * query_groups * max(1, dp // 64) <= attention_cuda.BWD_MAX_WARPS
 
 
 def test_compare_builds_refuses_without_a_base_or_a_card(monkeypatch, capsys):

@@ -5,8 +5,9 @@
 //
 // Layouts (the JAX package's): q, dO `[B, T, H, dh]`; k, v `[B, S, H, dh]`
 // in float32 or bfloat16; seg_q `[B, T]`, seg_ctx `[B, S]` int32; the row
-// logsumexp `[B, H, T]` and D = sum_d O * dO `[B, T, H]` in float32.
-// Every sum runs in float32 on the CUDA cores.
+// logsumexp `[B, H, T]` and the forward output O `[B, T, H, dh]` in
+// float32. Every sum runs in float32: the forward's on the CUDA cores, the
+// backward's products on the tensor cores (attention_bwd.cu).
 
 #pragma once
 

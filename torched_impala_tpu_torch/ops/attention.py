@@ -14,14 +14,15 @@ Logits are scaled by 1/sqrt(dh); masked logits are NEG_INF = -1e30.
 - `windowed_attention_reference` is the forward's plain version: the f32
   output and the row logsumexp `[B, H, T]`. A row that sees nothing gives
   zeros and lse = NEG_INF, as the kernel does.
-- `attention_dq_reference` and `attention_dkv_reference` are the two
-  backward kernels' plain versions, with the kernels' formulas: P
-  recomputed from q, k and the saved lse, D = sum_d O * dO (`row_term`),
-  dS = P * (dP - D), dQ = dS K * scale, dK = dS^T Q * scale, dV = P^T dO;
-  `windowed_attention_backward_reference` runs both.
-- `windowed_attention` is a `torch.autograd.Function` over both, run where
-  the tensors lie: the hand-written kernels of `ops/attention_cuda.py`
-  for CUDA tensors, the plain versions for CPU tensors.
+- `windowed_attention_backward_reference` is the backward kernel's plain
+  version, with the kernel's formulas: D = sum_d O * dO (`row_term`), P
+  recomputed from q, k and the saved lse, dS = P * (dP - D), dQ = dS K *
+  scale (`attention_dq_reference`), dK = dS^T Q * scale and dV = P^T dO
+  (`attention_dkv_reference`).
+- `windowed_attention` is a `torch.autograd.Function` over the forward
+  and the backward, run where the tensors lie: the hand-written kernels of
+  `ops/attention_cuda.py` for CUDA tensors (one call each way), the plain
+  versions for CPU tensors.
 
 bf16 inputs keep bf16 operands with f32 sums, as the TPU kernels do: the
 probabilities are rounded to v's dtype before the PV product, dS to k's
@@ -67,12 +68,14 @@ def windowed_attention_reference(q, k_ctx, v_ctx, seg_q, seg_ctx, W: int):
     """(out `[B, T, H, dh]` f32, lse `[B, H, T]` f32) in plain PyTorch."""
     p, lse = _probs(q, k_ctx, seg_q, seg_ctx, W)
     out = torch.einsum("bhts,bshd->bthd", _round_to(p, v_ctx.dtype), v_ctx.float())
-    return out, lse
+    # Contiguous, as the kernel's: the backward kernel reads it by rows.
+    return out.contiguous(), lse
 
 
 def row_term(o: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """D = sum_d O * dO `[B, T, H]` f32, the softmax-Jacobian row term,
-    from the f32 forward output and dOut (outside the kernels, as in JAX)."""
+    from the f32 forward output and dOut (the plain backward's; the kernel
+    computes it inside)."""
     return torch.einsum("bthd,bthd->bth", o, g.float()).contiguous()
 
 

@@ -2,19 +2,22 @@
 (`csrc/attention_fwd.cu`, `csrc/attention_bwd.cu`).
 
 Replace the Pallas TPU kernels of `torched_impala_tpu/ops/attention_pallas.py`:
-`_forward` (kernel `_fwd_kernel`) and the two calls of `_bwd_pallas`
-(`_dq_kernel`, `_dkv_kernel`). The sources' header notes give the
-designs and the bounds. The plain versions are
-`ops/attention.py:windowed_attention_reference`, `attention_dq_reference`
-and `attention_dkv_reference`.
+`_forward` (kernel `_fwd_kernel`) and `_bwd_pallas` (both of its calls,
+`_dq_kernel` and `_dkv_kernel`, and its D = sum_d O * dO), the backward
+as one kernel that returns dq, dk and dv together. The sources' header
+notes give the designs and the bounds. The plain versions are
+`ops/attention.py:windowed_attention_reference` and
+`windowed_attention_backward_reference`.
 
-The wrappers check their inputs, allocate the outputs and launch on
-PyTorch's current stream. They have no fallback: a CPU tensor, a dtype
-other than float32 or bfloat16 (int32 for the segments), a head width
-above MAX_HEAD_DIM, a non-contiguous tensor, a failed build or a refused
-launch raises. Every head width from 1 to MAX_HEAD_DIM runs: the kernels
-are built at padded widths and take the true one at run time. `LAUNCHES` counts each kernel's launches in this
-process: "fwd", "dq" and "dkv", one per wrapper.
+The wrappers check their inputs, allocate the outputs (and the
+backward's dQ scratch) and launch on PyTorch's current stream; neither
+launches a PyTorch kernel of its own. They have no fallback: a CPU
+tensor, a dtype other than float32 or bfloat16 (int32 for the segments,
+float32 for the saved output and lse), a head width above MAX_HEAD_DIM,
+a non-contiguous tensor, a failed build or a refused launch raises.
+Every head width from 1 to MAX_HEAD_DIM runs: the kernels are built at
+padded widths and take the true one at run time. `LAUNCHES` counts each
+wrapper's calls in this process: "fwd" and "bwd".
 """
 
 from __future__ import annotations
@@ -25,19 +28,22 @@ import torch
 
 from torched_impala_tpu_torch.ops import _build
 from torched_impala_tpu_torch.ops._build import check_input
-from torched_impala_tpu_torch.ops.attention import row_term
 
-LAUNCHES = {"fwd": 0, "dq": 0, "dkv": 0}
+LAUNCHES = {"fwd": 0, "bwd": 0}
 # The widest instantiation (csrc/attention_common.cuh); wider heads raise.
 MAX_HEAD_DIM = 256
+# The backward's tiles (csrc/attention_bwd.cu): a warp owns BWD_ROWS key
+# slots and BWD_ROWS rows of each query tile; a block has at most
+# BWD_MAX_WARPS warps, key_warps x query_groups x max(1, DP / 64).
+BWD_ROWS = 16
+BWD_MAX_WARPS = 12
+# Where one key tile cannot cover the context: its warps and query groups.
+BWD_SPLIT = (4, 3)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "attention_fwd": {"attention_fwd_launch": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P]},
-    "attention_bwd": {
-        "attention_dq_launch": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _P],
-        "attention_dkv_launch": [_P] * 10 + [_I] * 6 + [_F, _I, _I, _P],
-    },
+    "attention_bwd": {"attention_bwd_launch": [_P] * 12 + [_I] * 8 + [_F, _I, _I, _P]},
 }
 
 
@@ -98,50 +104,45 @@ def attention_forward_cuda(q, k_ctx, v_ctx, seg_q, seg_ctx, W: int):
     return out, lse
 
 
-def _backward_args(kernel, q, k_ctx, v_ctx, g, lse, dcap, seg_q, seg_ctx, W):
-    B, T, S, H, dh, bf16 = _check(kernel, q, k_ctx, v_ctx, seg_q, seg_ctx, W)
-    device = q.device
-    check_input(kernel, "g", g, (B, T, H, dh), (q.dtype,), device)
-    check_input(kernel, "lse", lse, (B, H, T), (torch.float32,), device)
-    check_input(kernel, "dcap", dcap, (B, T, H), (torch.float32,), device)
-    ptrs = [t.data_ptr() for t in (q, k_ctx, v_ctx, g, lse, dcap, seg_q, seg_ctx)]
-    tail = (B, T, S, H, dh, W, 1.0 / dh**0.5, bf16, device.index, _stream(device))
-    return (B, T, S, H, dh), ptrs, tail
-
-
-def attention_dq_cuda(q, k_ctx, v_ctx, g, lse, dcap, seg_q, seg_ctx, W: int):
-    """dq `[B, T, H, dh]` f32 on the card. Same contract as
-    `attention_dq_reference`."""
-    (B, T, S, H, dh), ptrs, tail = _backward_args(
-        "attention_dq", q, k_ctx, v_ctx, g, lse, dcap, seg_q, seg_ctx, W
-    )
-    dq = torch.empty((B, T, H, dh), dtype=torch.float32, device=q.device)
-    rc = _library("attention_bwd").attention_dq_launch(*ptrs, dq.data_ptr(), *tail)
-    if rc != 0:
-        raise RuntimeError(f"attention_dq: kernel launch failed with cudaError {rc}")
-    LAUNCHES["dq"] += 1
-    return dq
-
-
-def attention_dkv_cuda(q, k_ctx, v_ctx, g, lse, dcap, seg_q, seg_ctx, W: int):
-    """(dk, dv) `[B, S, H, dh]` f32 on the card. Same contract as
-    `attention_dkv_reference`."""
-    (B, T, S, H, dh), ptrs, tail = _backward_args(
-        "attention_dkv", q, k_ctx, v_ctx, g, lse, dcap, seg_q, seg_ctx, W
-    )
-    dk, dv = (torch.empty((B, S, H, dh), dtype=torch.float32, device=q.device) for _ in range(2))
-    rc = _library("attention_bwd").attention_dkv_launch(
-        *ptrs, dk.data_ptr(), dv.data_ptr(), *tail
-    )
-    if rc != 0:
-        raise RuntimeError(f"attention_dkv: kernel launch failed with cudaError {rc}")
-    LAUNCHES["dkv"] += 1
-    return dk, dv
+def bwd_tiles(S: int, dh: int) -> tuple[int, int]:
+    """(key_warps, query_groups) of the backward: a key tile of BWD_ROWS x
+    key_warps slots and query tiles of BWD_ROWS x query_groups rows. One key
+    tile over the whole context where a block's warps cover it (no dQ
+    shares to sum, no second launch), else BWD_SPLIT, within the warps a
+    block has at this head width."""
+    dp = next(p for p in (16, 32, 64, 128, 256) if dh <= p)
+    warps = BWD_MAX_WARPS // max(1, dp // 64)
+    whole = -(-S // BWD_ROWS)
+    if whole <= warps:
+        return whole, 1
+    key_warps = min(BWD_SPLIT[0], warps)
+    return key_warps, max(1, min(BWD_SPLIT[1], warps // key_warps))
 
 
 def attention_backward_cuda(q, k_ctx, v_ctx, g, o, lse, seg_q, seg_ctx, W: int):
-    """(dq, dk, dv), each f32, on the card: D from the saved output, then
-    the dQ kernel and the dK/dV kernel. Same contract as
-    `windowed_attention_backward_reference`."""
-    args = (q, k_ctx, v_ctx, g, lse, row_term(o, g), seg_q, seg_ctx, W)
-    return (attention_dq_cuda(*args), *attention_dkv_cuda(*args))
+    """(dq, dk, dv), each f32, on the card: one kernel computes D from the
+    saved f32 output `o`, P and dS once for each pair of a query tile and a
+    key tile, and the three gradients; where the context takes more than
+    one key tile, a second kernel adds the tiles' dQ shares. Same contract
+    as `windowed_attention_backward_reference`."""
+    kernel = "attention_bwd"
+    B, T, S, H, dh, bf16 = _check(kernel, q, k_ctx, v_ctx, seg_q, seg_ctx, W)
+    device = q.device
+    check_input(kernel, "g", g, (B, T, H, dh), (q.dtype,), device)
+    check_input(kernel, "o", o, (B, T, H, dh), (torch.float32,), device)
+    check_input(kernel, "lse", lse, (B, H, T), (torch.float32,), device)
+    key_warps, query_groups = bwd_tiles(S, dh)
+    tiles = -(-S // (BWD_ROWS * key_warps))
+    dq = torch.empty((B, T, H, dh), dtype=torch.float32, device=device)
+    dk, dv = (torch.empty((B, S, H, dh), dtype=torch.float32, device=device) for _ in range(2))
+    part = torch.empty((tiles, B, T, H, dh), dtype=torch.float32, device=device) if tiles > 1 else None
+    rc = _library(kernel).attention_bwd_launch(
+        *(t.data_ptr() for t in (q, k_ctx, v_ctx, g, o, lse, seg_q, seg_ctx, dq)),
+        None if part is None else part.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, T, S, H, dh, W, key_warps, query_groups, 1.0 / dh**0.5, bf16, device.index,
+        _stream(device),
+    )
+    if rc != 0:
+        raise RuntimeError(f"{kernel}: kernel launch failed with cudaError {rc}")
+    LAUNCHES["bwd"] += 1
+    return dq, dk, dv

@@ -5,17 +5,22 @@ kernels built from another source tree, in turns on one card.
 
 BASE_CSRC is another tree's `torched_impala_tpu_torch/csrc` (for example
 a parent commit's, unpacked with `git archive <rev>
-torched_impala_tpu_torch/csrc | tar -x -C DIR`). Its kernels must have
-the same C entry points as this checkout's. Both trees are built by
-`_build.build_all`, each under the hash of its own sources. Each kernel
-is then timed by the profiler's device time (mean of 100 calls) at the
-presets' shapes, in the order base, this, this, base, so that both
-builds see the same card and clocks: the LSTM cell
-at the Breakout learner's (B, F, H) = (32, 256, 256) and its actors'
-(8, 256, 256), and the attention forward, dQ and dK/dV at the
-pong_transformer learner's (B, T, H, dh, W) = (32, 21, 4, 64, 128).
-Prints one JSON line with the card's name and power limit. Without a
-CUDA card it exits 2 and prints no result.
+torched_impala_tpu_torch/csrc | tar -x -C DIR`). Both trees are built by
+`_build.build_all`, each under the hash of its own sources. Each workload
+is timed by the profiler's device time (mean of 100 calls) in the order
+base, this, this, base, so that both builds see the same card and clocks:
+the LSTM cell at the Breakout learner's (B, F, H) = (32, 256, 256) and
+its actors' (8, 256, 256); the attention forward kernel; and one attention
+backward call with every kernel inside it summed, at the pong_transformer
+learner's (B, T, H, dh, W) = (32, 21, 4, 64, 128) and at a long unroll
+(2, 1024, 4, 64, 128), f32, every slot of the same episode. A tree whose
+library exports `attention_bwd_launch` makes one backward call through
+it; an older tree's call is D = `attention.row_term(o, dO)` in PyTorch,
+then its `attention_dq_launch` and `attention_dkv_launch`. Then this
+tree's backward alone at each tile plan of BWD_PLANS, twice each (the
+plans in order, then reversed). Prints one JSON line with the card's
+name and power limit. Without a CUDA card it exits 2 and prints no
+result.
 """
 
 from __future__ import annotations
@@ -32,30 +37,42 @@ import torch
 from torched_impala_tpu_torch.ops import _build, attention, attention_cuda, lstm_cuda, profiling
 
 LSTM_SHAPES = [(32, 256, 256), (8, 256, 256)]  # B, F, H
-ATTN_SHAPE = (32, 21, 4, 64, 128)  # B, T, H, dh, W
+ATTN_SHAPES = {"learner": (32, 21, 4, 64, 128), "long": (2, 1024, 4, 64, 128)}  # B, T, H, dh, W
+# (key_warps, query_groups) of the backward timed at each shape.
+BWD_PLANS = {
+    "learner": [(10, 1), (12, 1), (5, 1), (4, 2), (3, 2), (2, 2)],
+    "long": [(4, 3), (4, 2), (3, 4), (2, 6), (6, 2), (4, 1)],
+}
 SOURCES = ("lstm_cell", "attention_fwd", "attention_bwd")
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# Every entry point either tree may export: this tree's, and the two
+# backward kernels of the trees before the backward was one kernel.
 SIGNATURES = {
-    "lstm_cell": {"lstm_cell_launch": lstm_cuda._ARGTYPES},
-    **attention_cuda._SIGNATURES,
+    "lstm_cell_launch": lstm_cuda._ARGTYPES,
+    **{fn: args for entries in attention_cuda._SIGNATURES.values() for fn, args in entries.items()},
+    "attention_dq_launch": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _P],
+    "attention_dkv_launch": [_P] * 10 + [_I] * 6 + [_F, _I, _I, _P],
 }
 CALLS = 100
 
 
 def load(csrc: Path) -> dict[str, ctypes.CDLL]:
     """The three kernels of `csrc`, built (`_build.build_all`) and loaded
-    with their entry points' signatures."""
+    with the signatures of the entry points they export."""
     libs = {}
     for name, path in _build.build_all(list(SOURCES), csrc).items():
         lib = ctypes.CDLL(str(path))
-        for fn_name, argtypes in SIGNATURES[name].items():
-            getattr(lib, fn_name).argtypes = argtypes
-            getattr(lib, fn_name).restype = ctypes.c_int
+        for fn_name, argtypes in SIGNATURES.items():
+            if hasattr(lib, fn_name):
+                getattr(lib, fn_name).argtypes = argtypes
+                getattr(lib, fn_name).restype = ctypes.c_int
         libs[name] = lib
     return libs
 
 
-def device_us(fn, kernel: str) -> float:
-    """Mean device µs a call of `fn` spends in kernels named `kernel`."""
+def device_us(fn, kernel: str | None) -> float:
+    """Mean device µs a call of `fn` spends in kernels named `kernel` (in
+    every kernel it launches when `kernel` is None)."""
     fn()
     us, _ = profiling.device_us(fn, calls=CALLS, name=kernel)
     if us is None:
@@ -69,8 +86,9 @@ def _check(rc: int, what: str) -> None:
 
 
 def workloads(device) -> dict:
-    """name -> (kernel name, fn(libs)) for each timed launch. Each fn holds
-    its tensors, so the pointers it passes stay valid."""
+    """name -> (kernel name, fn(libs)) for each timed call; a kernel name
+    of None times every kernel the call launches. Each fn holds its
+    tensors, so the pointers it passes stay valid."""
     rng = np.random.default_rng(0)
 
     def f32(*shape, scale=1.0):
@@ -90,28 +108,44 @@ def workloads(device) -> dict:
 
         jobs[f"lstm_cell_{B}x{F}x{H}"] = ("lstm_cell_kernel", lstm_call)
 
-    B, T, H, dh, W = ATTN_SHAPE
-    S = W + T
-    q, k, v, g = f32(B, T, H, dh), f32(B, S, H, dh), f32(B, S, H, dh), f32(B, T, H, dh)
-    seg_q = torch.ones(B, T, dtype=torch.int32, device=device)
-    seg_ctx = torch.ones(B, S, dtype=torch.int32, device=device)
-    out, lse = attention.windowed_attention_reference(q, k, v, seg_q, seg_ctx, W)
-    dcap = attention.row_term(out, g)
-    o, lse_out, dq, dk, dv = (torch.empty_like(t) for t in (q, lse, q, k, k))
-    tail = (B, T, S, H, dh, W, dh**-0.5, 0, device.index, stream)
-    fwd = (q, k, v, seg_q, seg_ctx, o, lse_out)
-    bwd = (q, k, v, g, lse, dcap, seg_q, seg_ctx)
+    for label, (B, T, H, dh, W) in ATTN_SHAPES.items():
+        S = W + T
+        q, k, v, g = f32(B, T, H, dh), f32(B, S, H, dh), f32(B, S, H, dh), f32(B, T, H, dh)
+        seg_q = torch.ones(B, T, dtype=torch.int32, device=device)
+        seg_ctx = torch.ones(B, S, dtype=torch.int32, device=device)
+        out, lse = attention.windowed_attention_reference(q, k, v, seg_q, seg_ctx, W)
+        o, lse_out, dq, dk, dv = (torch.empty_like(t) for t in (q, lse, q, k, k))
+        tail = (B, T, S, H, dh, W)
+        launch_tail = (dh**-0.5, 0, device.index, stream)
 
-    def attention_call(source, entry, tensors):
-        def call(libs):
+        def fwd_call(libs, tensors=(q, k, v, seg_q, seg_ctx, o, lse_out), tail=tail,
+                     launch_tail=launch_tail):
             ptrs = [t.data_ptr() for t in tensors]
-            _check(getattr(libs[source], entry)(*ptrs, *tail), entry)
+            _check(libs["attention_fwd"].attention_fwd_launch(*ptrs, *tail, *launch_tail), "attention_fwd")
 
-        return call
+        def bwd_call(libs, plan=None, tensors=(q, k, v, g, out, lse, seg_q, seg_ctx), tail=tail,
+                     launch_tail=launch_tail, outs=(dq, dk, dv), S=S):
+            lib = libs["attention_bwd"]
+            if hasattr(lib, "attention_bwd_launch"):
+                key_warps, query_groups = plan or attention_cuda.bwd_tiles(S, tail[4])
+                tiles = -(-S // (attention_cuda.BWD_ROWS * key_warps))
+                part = torch.empty((tiles, *outs[0].shape), device=device) if tiles > 1 else None
+                ptrs = [t.data_ptr() for t in (*tensors, outs[0])]
+                rc = lib.attention_bwd_launch(
+                    *ptrs, None if part is None else part.data_ptr(), outs[1].data_ptr(),
+                    outs[2].data_ptr(), *tail, key_warps, query_groups, *launch_tail,
+                )
+                _check(rc, "attention_bwd")
+                return
+            q_, k_, v_, g_, o_, lse_, segq_, segc_ = tensors
+            dcap = attention.row_term(o_, g_)
+            ptrs = [t.data_ptr() for t in (q_, k_, v_, g_, lse_, dcap, segq_, segc_)]
+            _check(lib.attention_dq_launch(*ptrs, outs[0].data_ptr(), *tail, *launch_tail), "attention_dq")
+            _check(lib.attention_dkv_launch(*ptrs, outs[1].data_ptr(), outs[2].data_ptr(), *tail,
+                                            *launch_tail), "attention_dkv")
 
-    jobs["attention_fwd"] = ("attention_fwd_kernel", attention_call("attention_fwd", "attention_fwd_launch", fwd))
-    jobs["attention_dq"] = ("attention_dq_kernel", attention_call("attention_bwd", "attention_dq_launch", (*bwd, dq)))
-    jobs["attention_dkv"] = ("attention_dkv_kernel", attention_call("attention_bwd", "attention_dkv_launch", (*bwd, dk, dv)))
+        jobs[f"attention_fwd_{label}"] = ("attention_fwd_kernel", fwd_call)
+        jobs[f"attention_bwd_call_{label}"] = (None, bwd_call)
     return jobs
 
 
@@ -129,15 +163,23 @@ def main(argv=None) -> int:
     trees = {"base": Path(argv[0]), "this": _build.CSRC}
     libs = {label: load(csrc) for label, csrc in trees.items()}
     times: dict[str, dict[str, list[float]]] = {}
-    for name, (kernel, fn) in workloads(device).items():
+    jobs = workloads(device)
+    for name, (kernel, fn) in jobs.items():
         for label in ("base", "this", "this", "base"):
             us = device_us(lambda: fn(libs[label]), kernel)
             times.setdefault(name, {}).setdefault(label, []).append(us)
+    plans: dict[str, dict[str, list[float]]] = {}
+    for shape, shape_plans in BWD_PLANS.items():
+        _, fn = jobs[f"attention_bwd_call_{shape}"]
+        for plan in shape_plans + shape_plans[::-1]:
+            us = device_us(lambda: fn(libs["this"], plan), None)
+            plans.setdefault(shape, {}).setdefault(str(list(plan)), []).append(us)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
-    print(json.dumps({"card": smi, "base": str(trees["base"]), "device_us": times}))
+    print(json.dumps({"card": smi, "base": str(trees["base"]), "device_us": times,
+                      "bwd_plans_device_us": plans}))
     return 0
 
 
