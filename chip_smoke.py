@@ -777,9 +777,9 @@ def attention_work(x, itemsize):
 def sdpa_yardstick(x, device_calls):
     """`F.scaled_dot_product_attention` with the same boolean mask, on
     [B, H, T, dh] copies of the inputs (never on the port's path): the
-    device µs of its forward alone and of its backward alone (the gradient
-    of a saved graph, `retain_graph=True`), the backward's event ms, and
-    the kernels each runs."""
+    event ms and device µs of its forward alone and of its backward alone
+    (the gradient of a saved graph, `retain_graph=True`), and the kernels
+    each runs."""
     import torch
     import torch.nn.functional as F
 

@@ -68,9 +68,10 @@ __device__ __forceinline__ bool tile_may_see(int t1, int s0, int W) {
 // 0, so every dot product over DP adds only 0 x 0 terms to the dh true
 // ones and the sums are exact; outputs are written for d < dh only. The
 // scale is the caller's 1/sqrt(dh) of the true dh. Each instantiation
-// takes its arrays from dynamic shared memory, whose size depends on DP
-// alone, and its launcher sets that size as the kernel's ceiling once
-// (smem_ceiling.cuh).
+// takes its arrays from dynamic shared memory and its launcher sets the
+// kernel's ceiling once (smem_ceiling.cuh): the forward's size, which
+// depends on DP alone; the backward's, whose tiles are chosen per call,
+// the card's 227 KB.
 
 // The padded width a head width runs at; 0 outside 1 to 256.
 inline int padded_width(int dh) {

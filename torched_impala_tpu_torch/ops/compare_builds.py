@@ -41,7 +41,7 @@ ATTN_SHAPES = {"learner": (32, 21, 4, 64, 128), "long": (2, 1024, 4, 64, 128)}  
 # (key_warps, query_groups) of the backward timed at each shape.
 BWD_PLANS = {
     "learner": [(10, 1), (12, 1), (5, 1), (4, 2), (3, 2), (2, 2)],
-    "long": [(4, 3), (4, 2), (3, 4), (2, 6), (6, 2), (4, 1)],
+    "long": [(4, 3), (4, 2), (3, 4), (3, 3), (2, 4), (6, 2), (4, 1)],
 }
 SOURCES = ("lstm_cell", "attention_fwd", "attention_bwd")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
