@@ -41,8 +41,8 @@ non-zero (no phase's failure is caught):
    loss through the kernel against the loss through the plain sums,
    reductions sum and mean (logs and gradients rtol 1e-5); times and
    bound at the Pong shape (no single PyTorch call computes it).
-7. attention: the backward kernel's machine code holds `HMMA`
-   (mma.sync) instructions in every instantiation; the forward and the
+7. attention: both kernels' machine code holds `HMMA` (mma.sync)
+   instructions in each of their ten instantiations; the forward and the
    backward (one call: dq, dk and dv) against their plain versions at the
    learner's shape (B=32, T=21, H=4, dh=64, W=128: S=149, episodes that
    reset mid-unroll, a cache partly of an older episode or empty), a long
@@ -50,8 +50,9 @@ non-zero (no phase's failure is caught):
    widths 8 and 128, each in f32 and bf16: f32 forward <= 2e-5 absolute
    (TF32 off), gradients rtol 1e-4, atol 1e-5 x the largest gradient,
    bf16 within one bf16 rounding; bf16 dtypes through the
-   autograd.Function; two backward launches bit-identical at the learner
-   and long shapes. Times of each call and its plain version at those two
+   autograd.Function; two forward launches and two backward launches
+   bit-identical at the learner and long shapes. Times of each call and
+   its plain version at those two
    shapes (events, and device time with every kernel of the call summed),
    bounds, `F.scaled_dot_product_attention` with the same boolean mask as
    the yardstick (its forward alone and its backward alone, events and
@@ -99,6 +100,11 @@ import numpy as np
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+# Both attention kernels do their f32 products on the tensor cores as
+# 3xTF32, three TF32 products for each: the card's dense TF32 rate over 3
+# bounds them, where the f32 rate outside the tensor cores would read as
+# slower than the kernels themselves.
+PEAK_TF32_SPLIT_OPS_PER_S = 495e12 / 3
 PEAK_BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 KERNEL_SHAPES = [(20, 32), (100, 32), (20, 256), (1, 1), (7, 130)]
 THRESHOLDS = [
@@ -813,14 +819,16 @@ def phase_attention(device):
     from torched_impala_tpu_torch.models.transformer import einsum_attention
     from torched_impala_tpu_torch.ops import _build, attention, attention_cuda, profiling
 
-    # The backward runs on the tensor cores: every instantiation of its
-    # kernel holds mma.sync (HMMA) instructions.
-    hmma = {
-        fn: n for fn, n in _build.sass_counts("attention_bwd", "HMMA").items()
-        if "attention_bwd_kernel" in fn
-    }
-    if len(hmma) != 10 or min(hmma.values()) == 0:
-        raise AssertionError(f"attention_bwd: HMMA counts {hmma}")
+    # Both kernels run on the tensor cores: each of the ten instantiations
+    # (two dtypes x five padded widths) of each holds mma.sync (HMMA)
+    # instructions.
+    hmma = {}
+    for name in ("attention_fwd", "attention_bwd"):
+        hmma[name] = {
+            fn: n for fn, n in _build.sass_counts(name, "HMMA").items() if f"{name}_kernel" in fn
+        }
+        if len(hmma[name]) != 10 or min(hmma[name].values()) == 0:
+            raise AssertionError(f"{name}: HMMA counts {hmma[name]}")
 
     def kernel_vs_plain(x, bf16=False):
         """Max abs errors of the forward and the backward against their
@@ -880,9 +888,13 @@ def phase_attention(device):
         out, lse = attention.windowed_attention_reference(*args)
         bwd = (x["q"], x["k"], x["v"], x["g"], out, lse, x["seg_q"], x["seg_ctx"], x["W"])
         # Deterministic: a second launch on the same inputs is bit-identical.
-        first, again = (attention_cuda.attention_backward_cuda(*bwd) for _ in range(2))
-        if not all(torch.equal(a, b) for a, b in zip(first, again)):
-            raise AssertionError(f"attention_bwd: two launches differ at {shape}")
+        for name, fn, fn_args in (
+            ("attention_fwd", attention_cuda.attention_forward_cuda, args),
+            ("attention_bwd", attention_cuda.attention_backward_cuda, bwd),
+        ):
+            first, again = (fn(*fn_args) for _ in range(2))
+            if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                raise AssertionError(f"{name}: two launches differ at {shape}")
         iters = 50 if label == "learner" else 10
         t = dict(
             fwd=time_cuda(lambda: attention_cuda.attention_forward_cuda(*args), iters=iters, warmup=5),
@@ -891,6 +903,7 @@ def phase_attention(device):
             bwd_plain=time_cuda(
                 lambda: attention.windowed_attention_backward_reference(*bwd), iters=iters, warmup=5
             ),
+            fwd_tiles=attention_cuda.fwd_tiles(T, W + T, dh),
             bwd_tiles=attention_cuda.bwd_tiles(W + T, dh),
         )
         # The yardstick (never on the path): SDPA with the same boolean mask.
@@ -921,7 +934,7 @@ def phase_attention(device):
             )
         work = attention_work(x, itemsize=4)
         for name in ("fwd", "bwd"):
-            t[f"{name}_bound_ms"], t[f"{name}_bound_by"] = bound(*work[name], PEAK_F32_OPS_PER_S)
+            t[f"{name}_bound_ms"], t[f"{name}_bound_by"] = bound(*work[name], PEAK_TF32_SPLIT_OPS_PER_S)
         t["score_elems"] = T * (W + T)
         times[label] = t
         if label == "learner":

@@ -723,6 +723,100 @@ def test_attention_backward_concurrent_launches(cuda):
             assert all(torch.equal(a, b) for a, b in zip(run, runs[0]))
 
 
+def _attention_fwd_vs_plain(args, bf16):
+    """The forward's out and lse against the plain version's, at the
+    gates of `_attention_vs_plain`."""
+    from torched_impala_tpu_torch.ops import attention, attention_cuda
+
+    out, lse = attention_cuda.attention_forward_cuda(*args)
+    ref_out, ref_lse = attention.windowed_attention_reference(*args)
+    torch.cuda.synchronize()
+    ulp = 2.0**-7
+    tol = dict(rtol=ulp, atol=ulp) if bf16 else dict(rtol=0.0, atol=2e-5)
+    torch.testing.assert_close(out, ref_out, **tol)
+    torch.testing.assert_close(lse, ref_lse, **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan", [(1, 1), (2, 1), (1, 3), (3, 2), (6, 2), (3, 4), (12, 1)], ids=str)
+def test_attention_forward_at_each_tile_plan(cuda, plan, monkeypatch):
+    """Query groups, key warps (their partials merged in shared memory)
+    and one or many steps give the plain version's output and lse, in f32
+    and bf16, at a ragged shape, two head widths and a run of query tiles.
+    Plans past the block's 12 warps at a width are skipped there."""
+    from torched_impala_tpu_torch.ops import attention_cuda
+
+    monkeypatch.setattr(attention_cuda, "fwd_tiles", lambda T, S, dh: plan)
+    key_warps, query_groups = plan
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ((5, 40, 3, 32, 19), (2, 37, 2, 128, 21), (2, 150, 2, 64, 33)):
+            dp = next(p for p in (16, 32, 64, 128, 256) if shape[3] <= p)
+            if key_warps * query_groups * max(1, dp // 64) > attention_cuda.FWD_MAX_WARPS:
+                continue
+            q, k, v, seg_q, seg_ctx, W, _ = _attn_inputs(*shape, seed=sum(shape), device=cuda,
+                                                         dtype=dtype)
+            _attention_fwd_vs_plain((q, k, v, seg_q, seg_ctx, W), bf16=dtype == torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_attention_forward_refuses_a_plan_past_the_block(cuda, monkeypatch):
+    """A plan over 12 warps at its width is refused by the launch (no
+    fallback): cudaErrorInvalidValue (1)."""
+    from torched_impala_tpu_torch.ops import attention_cuda
+
+    q, k, v, seg_q, seg_ctx, W, _ = _attn_inputs(2, 21, 2, 128, 19, seed=0, device=cuda)
+    monkeypatch.setattr(attention_cuda, "fwd_tiles", lambda T, S, dh: (4, 2))
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        attention_cuda.attention_forward_cuda(q, k, v, seg_q, seg_ctx, W)
+
+
+@pytest.mark.gpu
+def test_attention_forward_concurrent_launches(cuda):
+    """Two threads launch the forward at once, at the learner's shape and
+    at a long unroll (other plans, other shared-memory sizes), 20 times
+    each: no launch is refused (the ceiling is set once), and every result
+    is the first one's, bit for bit."""
+    import threading
+
+    from torched_impala_tpu_torch.ops import attention_cuda
+
+    cases = [_attn_inputs(*ATTN_SHAPES[0], seed=9, device=cuda)[:6],
+             _attn_inputs(*ATTN_SHAPES[1], seed=10, device=cuda)[:6]]
+    outs, errors = [[], []], []
+    start = threading.Barrier(len(cases))
+
+    def launch(i):
+        try:
+            start.wait()
+            for _ in range(20):
+                outs[i].append(attention_cuda.attention_forward_cuda(*cases[i]))
+            torch.cuda.synchronize()
+        except Exception as e:  # raised again below, in the test's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=launch, args=(i,)) for i in range(len(cases))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    for runs in outs:
+        assert len(runs) == 20
+        for run in runs[1:]:
+            assert all(torch.equal(a, b) for a, b in zip(run, runs[0]))
+
+
+@pytest.mark.gpu
+def test_attention_forward_runs_on_tensor_cores(cuda):
+    """Every instantiation of the forward kernel (two dtypes x five padded
+    widths) holds mma.sync (HMMA) instructions."""
+    from torched_impala_tpu_torch.ops import _build
+
+    counts = _build.sass_counts("attention_fwd", "HMMA")
+    kernels = {fn: n for fn, n in counts.items() if "attention_fwd_kernel" in fn}
+    assert len(kernels) == 10 and min(kernels.values()) > 0, counts
+
+
 @pytest.mark.gpu
 def test_attention_backward_runs_on_tensor_cores(cuda):
     """Every instantiation of the backward kernel holds mma.sync (HMMA)
@@ -817,6 +911,27 @@ def test_attention_backward_tile_plan(S, dh, plan):
     key_warps, query_groups = plan
     dp = next(p for p in (16, 32, 64, 128, 256) if dh <= p)
     assert key_warps * query_groups * max(1, dp // 64) <= attention_cuda.BWD_MAX_WARPS
+
+
+@pytest.mark.parametrize(
+    "T,S,dh,plan",
+    [(21, 149, 64, (6, 2)), (1024, 1152, 64, (6, 2)), (1, 1, 16, (1, 1)), (9, 16, 8, (1, 1)),
+     (40, 59, 32, (4, 2)), (21, 37, 64, (3, 2)), (16, 149, 64, (10, 1)), (33, 193, 64, (6, 2)),
+     (21, 149, 128, (3, 2)), (1024, 1152, 128, (3, 2)), (9, 40, 128, (3, 1)),
+     (21, 149, 256, (1, 2)), (1024, 1152, 256, (1, 2)), (16, 300, 16, (12, 1))],
+)
+def test_attention_forward_tile_plan(T, S, dh, plan):
+    """Query tiles of as many 16-row groups as cover T, up to 2 (one tile,
+    K and V read once, at the learner's T = 21), then the key warps the
+    block's 12 warps leave, no more than S's 16-slot tiles; fewer at
+    dh > 64, where warps split the output columns."""
+    from torched_impala_tpu_torch.ops import attention_cuda
+
+    assert attention_cuda.fwd_tiles(T, S, dh) == plan
+    key_warps, query_groups = plan
+    dp = next(p for p in (16, 32, 64, 128, 256) if dh <= p)
+    assert key_warps * query_groups * max(1, dp // 64) <= attention_cuda.FWD_MAX_WARPS
+    assert query_groups <= attention_cuda.FWD_MAX_QUERY_GROUPS
 
 
 def test_compare_builds_refuses_without_a_base_or_a_card(monkeypatch, capsys):

@@ -65,7 +65,6 @@
 // kernels bounded 9.8 us together, as each read the inputs again.
 
 #include <algorithm>
-#include <cstdint>
 
 #include "attention_common.cuh"
 
@@ -75,7 +74,6 @@ using namespace attn;
 
 constexpr int kRows = 16;       // rows a warp owns: the m16 of every product
 constexpr int kMaxWarps = 12;   // a block's most: 168 registers a thread fit
-constexpr int kMaxSmem = 232448;  // the card's most a block (227 KB)
 
 // The layout of the DP instantiation. A warp owns 16 key slots, a group of
 // columns of their dK and dV (kCols <= 64 keeps them in 64 registers) and
@@ -104,123 +102,13 @@ struct Tile {
 };
 
 // The first query tile (of `rows` rows) that may see key slot s0 onward:
-// the tiles before it lie above the causal diagonal (`tile_may_see`).
+// the tiles before it lie above the causal diagonal: each of their
+// queries t has t < s0 - W, so none sees slot s0 or a later one.
 __device__ __forceinline__ int first_query_tile(int s0, int W, int rows) {
   return s0 < W ? 0 : (s0 - W) / rows;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
-               "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-template <typename E>
-__device__ __forceinline__ E zero() {
-  if constexpr (std::is_same<E, float>::value) {
-    return 0.0f;
-  } else {
-    return __float2bfloat16(0.0f);
-  }
-}
-
-// `rows` x DP elements of head h from a [B, L, H, dh] tensor into shared
-// memory (row stride LD elements): zeros past row L and in the padded
-// columns dh <= d < DP. With `vec` (dh a whole number of 16-byte chunks,
-// the tensor 16-byte aligned) as asynchronous 16-byte copies, else as
-// plain loads.
-template <typename E, int DP, int LD>
-__device__ __forceinline__ void copy_rows(E* dst, const E* __restrict__ src, int rows, int b,
-                                          int h, int row0, int L, int H, int dh, bool vec) {
-  if (vec) {
-    constexpr int kChunk = 16 / static_cast<int>(sizeof(E));
-    constexpr int kChunks = DP / kChunk;  // chunks a row
-    for (int c = threadIdx.x; c < rows * kChunks; c += blockDim.x) {
-      const int r = c / kChunks, d = (c % kChunks) * kChunk, row = row0 + r;
-      const bool valid = row < L && d < dh;
-      const E* s = valid ? src + ((static_cast<long>(b) * L + row) * H + h) * dh + d : src;
-      cp_async16(dst + r * LD + d, s, valid);
-    }
-  } else {
-    for (int c = threadIdx.x; c < rows * DP; c += blockDim.x) {
-      const int r = c / DP, d = c % DP, row = row0 + r;
-      dst[r * LD + d] =
-          row < L && d < dh ? src[((static_cast<long>(b) * L + row) * H + h) * dh + d] : zero<E>();
-    }
-  }
-}
-
-// An mma operand fragment of N values as TF32. For float32 inputs
-// (kSplit) hi is x with its low 13 bits cleared and lo = x - hi, exact in
-// f32; the tensor cores read the top 19 bits of each, so lo keeps x to
-// about 2^-21. bfloat16 values are exact in TF32 and pass as they are.
-template <bool kSplit, int N>
-struct Frag {
-  unsigned hi[N];
-  unsigned lo[kSplit ? N : 1];
-  __device__ __forceinline__ void set(int i, float x) {
-    if constexpr (kSplit) {
-      hi[i] = __float_as_uint(x) & 0xffffe000u;
-      lo[i] = __float_as_uint(x - __uint_as_float(hi[i]));
-    } else {
-      hi[i] = __float_as_uint(x);
-    }
-  }
-};
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a b: one TF32 product, or three when kSplit (3xTF32).
-template <bool kSplit>
-__device__ __forceinline__ void mma(float (&c)[4], const Frag<kSplit, 4>& a,
-                                    const Frag<kSplit, 2>& b) {
-  if constexpr (kSplit) {
-    mma_tf32(c, a.lo, b.hi);
-    mma_tf32(c, a.hi, b.lo);
-  }
-  mma_tf32(c, a.hi, b.hi);
-}
-
-// big += a.hi b.hi and small += the cross terms: two shorter chains of
-// dependent products where one accumulator would serialise three.
-template <bool kSplit>
-__device__ __forceinline__ void mma2(float (&big)[4], float (&small)[4],
-                                     const Frag<kSplit, 4>& a, const Frag<kSplit, 2>& b) {
-  if constexpr (kSplit) {
-    mma_tf32(small, a.lo, b.hi);
-    mma_tf32(small, a.hi, b.lo);
-  }
-  mma_tf32(big, a.hi, b.hi);
-}
-
-// Fragment coordinates (PTX m16n8k8): lane = 4 gr + tc. A (16 x 8): a0 (gr,
-// tc), a1 (gr + 8, tc), a2 (gr, tc + 4), a3 (gr + 8, tc + 4). B (8 x 8): b0
-// (tc, gr), b1 (tc + 4, gr). C (16 x 8): c0 (gr, 2 tc), c1 (gr, 2 tc + 1),
-// c2 (gr + 8, 2 tc), c3 (gr + 8, 2 tc + 1).
+// Fragment coordinates: attention_common.cuh, above mma_tf32.
 template <typename T, int DP>
 __global__ void __launch_bounds__(32 * kMaxWarps) attention_bwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -492,8 +380,6 @@ struct Args {
   float scale;
   int device;
 };
-
-bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; }
 
 template <typename T, int DP>
 int launch_dp(const Args& a, cudaStream_t stream) {

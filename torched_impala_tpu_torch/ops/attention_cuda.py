@@ -4,8 +4,10 @@
 Replace the Pallas TPU kernels of `torched_impala_tpu/ops/attention_pallas.py`:
 `_forward` (kernel `_fwd_kernel`) and `_bwd_pallas` (both of its calls,
 `_dq_kernel` and `_dkv_kernel`, and its D = sum_d O * dO), the backward
-as one kernel that returns dq, dk and dv together. The sources' header
-notes give the designs and the bounds. The plain versions are
+as one kernel that returns dq, dk and dv together. Both run their
+products on the tensor cores, and each takes its tile plan from a pure
+function here (`fwd_tiles`, `bwd_tiles`). The sources' header notes give
+the designs and the bounds. The plain versions are
 `ops/attention.py:windowed_attention_reference` and
 `windowed_attention_backward_reference`.
 
@@ -32,6 +34,15 @@ from torched_impala_tpu_torch.ops._build import check_input
 LAUNCHES = {"fwd": 0, "bwd": 0}
 # The widest instantiation (csrc/attention_common.cuh); wider heads raise.
 MAX_HEAD_DIM = 256
+# The forward's tiles (csrc/attention_fwd.cu): a warp owns FWD_ROWS query
+# rows and takes FWD_ROWS context slots a step; a block has at most
+# FWD_MAX_WARPS warps, key_warps x query_groups x max(1, DP / 64), and
+# owns query tiles of at most FWD_MAX_QUERY_GROUPS groups. Two groups and
+# six key warps were the fastest of the plans timed at the learner's shape
+# and at a long unroll (PERF.md §6).
+FWD_ROWS = 16
+FWD_MAX_WARPS = 12
+FWD_MAX_QUERY_GROUPS = 2
 # The backward's tiles (csrc/attention_bwd.cu): a warp owns BWD_ROWS key
 # slots and BWD_ROWS rows of each query tile; a block has at most
 # BWD_MAX_WARPS warps, key_warps x query_groups x max(1, DP / 64).
@@ -42,7 +53,7 @@ BWD_SPLIT = (4, 3)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "attention_fwd": {"attention_fwd_launch": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P]},
+    "attention_fwd": {"attention_fwd_plan_launch": [_P] * 7 + [_I] * 8 + [_F, _I, _I, _P]},
     "attention_bwd": {"attention_bwd_launch": [_P] * 12 + [_I] * 8 + [_F, _I, _I, _P]},
 }
 
@@ -87,16 +98,35 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _padded(dh: int) -> int:
+    return next(p for p in (16, 32, 64, 128, 256) if dh <= p)
+
+
+def fwd_tiles(T: int, S: int, dh: int) -> tuple[int, int]:
+    """(key_warps, query_groups) of the forward: query tiles of FWD_ROWS x
+    query_groups rows, as many groups as cover T up to
+    FWD_MAX_QUERY_GROUPS (one tile, so K and V read once, where T <= 32),
+    then as many key warps as the block has left for them, no more than
+    the context's FWD_ROWS-slot tiles."""
+    warps = FWD_MAX_WARPS // max(1, _padded(dh) // 64)
+    query_groups = min(-(-T // FWD_ROWS), FWD_MAX_QUERY_GROUPS, warps)
+    key_warps = max(1, min(-(-S // FWD_ROWS), warps // query_groups))
+    return key_warps, query_groups
+
+
 def attention_forward_cuda(q, k_ctx, v_ctx, seg_q, seg_ctx, W: int):
-    """(out `[B, T, H, dh]` f32, lse `[B, H, T]` f32) on the card. Same
-    contract as `windowed_attention_reference`."""
+    """(out `[B, T, H, dh]` f32, lse `[B, H, T]` f32) on the card, one
+    kernel at the tile plan of `fwd_tiles`. Same contract as
+    `windowed_attention_reference`."""
     B, T, S, H, dh, bf16 = _check("attention_fwd", q, k_ctx, v_ctx, seg_q, seg_ctx, W)
     device = q.device
+    key_warps, query_groups = fwd_tiles(T, S, dh)
     out = torch.empty((B, T, H, dh), dtype=torch.float32, device=device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=device)
-    rc = _library("attention_fwd").attention_fwd_launch(
+    rc = _library("attention_fwd").attention_fwd_plan_launch(
         *(t.data_ptr() for t in (q, k_ctx, v_ctx, seg_q, seg_ctx, out, lse)),
-        B, T, S, H, dh, W, 1.0 / dh**0.5, bf16, device.index, _stream(device),
+        B, T, S, H, dh, W, key_warps, query_groups, 1.0 / dh**0.5, bf16, device.index,
+        _stream(device),
     )
     if rc != 0:
         raise RuntimeError(f"attention_fwd: kernel launch failed with cudaError {rc}")
@@ -110,8 +140,7 @@ def bwd_tiles(S: int, dh: int) -> tuple[int, int]:
     tile over the whole context where a block's warps cover it (no dQ
     shares to sum, no second launch), else BWD_SPLIT, within the warps a
     block has at this head width."""
-    dp = next(p for p in (16, 32, 64, 128, 256) if dh <= p)
-    warps = BWD_MAX_WARPS // max(1, dp // 64)
+    warps = BWD_MAX_WARPS // max(1, _padded(dh) // 64)
     whole = -(-S // BWD_ROWS)
     if whole <= warps:
         return whole, 1

@@ -13,14 +13,19 @@ the LSTM cell at the Breakout learner's (B, F, H) = (32, 256, 256) and
 its actors' (8, 256, 256); the attention forward kernel; and one attention
 backward call with every kernel inside it summed, at the pong_transformer
 learner's (B, T, H, dh, W) = (32, 21, 4, 64, 128) and at a long unroll
-(2, 1024, 4, 64, 128), f32, every slot of the same episode. A tree whose
-library exports `attention_bwd_launch` makes one backward call through
-it; an older tree's call is D = `attention.row_term(o, dO)` in PyTorch,
-then its `attention_dq_launch` and `attention_dkv_launch`. Then this
-tree's backward alone at each tile plan of BWD_PLANS, twice each (the
-plans in order, then reversed). Prints one JSON line with the card's
-name and power limit. Without a CUDA card it exits 2 and prints no
-result.
+(2, 1024, 4, 64, 128), f32, every slot of the same episode; and the
+forward again at the learner's shape on ragged episodes (resets
+mid-unroll, a cache partly of an older episode or empty), where masked
+fragments are skipped. A tree whose library exports
+`attention_fwd_plan_launch` runs the forward at `fwd_tiles`' plan; an
+older tree's `attention_fwd_launch` takes no plan. A tree whose library
+exports `attention_bwd_launch` makes one backward call through it; an
+older tree's call is D = `attention.row_term(o, dO)` in PyTorch, then its
+`attention_dq_launch` and `attention_dkv_launch`. Then this tree's
+forward alone at each tile plan of FWD_PLANS and its backward alone at
+each plan of BWD_PLANS, twice each (the plans in order, then reversed).
+Prints one JSON line with the card's name and power limit. Without a
+CUDA card it exits 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -38,18 +43,25 @@ from torched_impala_tpu_torch.ops import _build, attention, attention_cuda, lstm
 
 LSTM_SHAPES = [(32, 256, 256), (8, 256, 256)]  # B, F, H
 ATTN_SHAPES = {"learner": (32, 21, 4, 64, 128), "long": (2, 1024, 4, 64, 128)}  # B, T, H, dh, W
-# (key_warps, query_groups) of the backward timed at each shape.
+# (key_warps, query_groups) of the forward and of the backward timed at
+# each shape.
+FWD_PLANS = {
+    "learner": [(6, 2), (5, 2), (4, 2), (3, 2), (2, 2), (12, 1), (8, 1), (4, 1)],
+    "long": [(3, 4), (2, 4), (1, 4), (6, 2), (4, 2), (3, 2), (12, 1), (6, 1)],
+}
 BWD_PLANS = {
     "learner": [(10, 1), (12, 1), (5, 1), (4, 2), (3, 2), (2, 2)],
     "long": [(4, 3), (4, 2), (3, 4), (3, 3), (2, 4), (6, 2), (4, 1)],
 }
 SOURCES = ("lstm_cell", "attention_fwd", "attention_bwd")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# Every entry point either tree may export: this tree's, and the two
-# backward kernels of the trees before the backward was one kernel.
+# Every entry point either tree may export: this tree's, the forward of
+# the trees before it took a tile plan, and the two backward kernels of
+# the trees before the backward was one kernel.
 SIGNATURES = {
     "lstm_cell_launch": lstm_cuda._ARGTYPES,
     **{fn: args for entries in attention_cuda._SIGNATURES.values() for fn, args in entries.items()},
+    "attention_fwd_launch": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
     "attention_dq_launch": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _P],
     "attention_dkv_launch": [_P] * 10 + [_I] * 6 + [_F, _I, _I, _P],
 }
@@ -108,20 +120,39 @@ def workloads(device) -> dict:
 
         jobs[f"lstm_cell_{B}x{F}x{H}"] = ("lstm_cell_kernel", lstm_call)
 
-    for label, (B, T, H, dh, W) in ATTN_SHAPES.items():
+    def i32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+
+    for label, (B, T, H, dh, W), ragged in (
+        *((label, shape, False) for label, shape in ATTN_SHAPES.items()),
+        ("ragged_learner", ATTN_SHAPES["learner"], True),
+    ):
         S = W + T
         q, k, v, g = f32(B, T, H, dh), f32(B, S, H, dh), f32(B, S, H, dh), f32(B, T, H, dh)
-        seg_q = torch.ones(B, T, dtype=torch.int32, device=device)
-        seg_ctx = torch.ones(B, S, dtype=torch.int32, device=device)
+        if ragged:
+            seg_q, seg_ctx = (i32(a) for a in ragged_segments(rng, B, T, W))
+        else:
+            seg_q = torch.ones(B, T, dtype=torch.int32, device=device)
+            seg_ctx = torch.ones(B, S, dtype=torch.int32, device=device)
         out, lse = attention.windowed_attention_reference(q, k, v, seg_q, seg_ctx, W)
         o, lse_out, dq, dk, dv = (torch.empty_like(t) for t in (q, lse, q, k, k))
         tail = (B, T, S, H, dh, W)
         launch_tail = (dh**-0.5, 0, device.index, stream)
 
-        def fwd_call(libs, tensors=(q, k, v, seg_q, seg_ctx, o, lse_out), tail=tail,
+        def fwd_call(libs, plan=None, tensors=(q, k, v, seg_q, seg_ctx, o, lse_out), tail=tail,
                      launch_tail=launch_tail):
+            lib = libs["attention_fwd"]
             ptrs = [t.data_ptr() for t in tensors]
-            _check(libs["attention_fwd"].attention_fwd_launch(*ptrs, *tail, *launch_tail), "attention_fwd")
+            if hasattr(lib, "attention_fwd_plan_launch"):
+                plan = plan or attention_cuda.fwd_tiles(tail[1], tail[2], tail[4])
+                rc = lib.attention_fwd_plan_launch(*ptrs, *tail, *plan, *launch_tail)
+            else:
+                rc = lib.attention_fwd_launch(*ptrs, *tail, *launch_tail)
+            _check(rc, "attention_fwd")
+
+        jobs[f"attention_fwd_{label}"] = ("attention_fwd_kernel", fwd_call)
+        if ragged:
+            continue
 
         def bwd_call(libs, plan=None, tensors=(q, k, v, g, out, lse, seg_q, seg_ctx), tail=tail,
                      launch_tail=launch_tail, outs=(dq, dk, dv), S=S):
@@ -144,9 +175,18 @@ def workloads(device) -> dict:
             _check(lib.attention_dkv_launch(*ptrs, outs[1].data_ptr(), outs[2].data_ptr(), *tail,
                                             *launch_tail), "attention_dkv")
 
-        jobs[f"attention_fwd_{label}"] = ("attention_fwd_kernel", fwd_call)
         jobs[f"attention_bwd_call_{label}"] = (None, bwd_call)
     return jobs
+
+
+def ragged_segments(rng, B: int, T: int, W: int):
+    """(seg_q [B, T], seg_ctx [B, W + T]) of episodes that reset
+    mid-unroll, with a cache whose slots are of this episode, of an older
+    one, or empty (-1)."""
+    base = rng.integers(1, 4, size=(B, 1))
+    seg_q = base + np.cumsum(rng.uniform(size=(B, T)) < 4.0 / max(T, 4), axis=1)
+    cache = np.where(rng.uniform(size=(B, W)) < 0.6, base, rng.choice([-1, 0], size=(B, W)))
+    return seg_q, np.concatenate([cache, seg_q], axis=1)
 
 
 def main(argv=None) -> int:
@@ -168,18 +208,22 @@ def main(argv=None) -> int:
         for label in ("base", "this", "this", "base"):
             us = device_us(lambda: fn(libs[label]), kernel)
             times.setdefault(name, {}).setdefault(label, []).append(us)
-    plans: dict[str, dict[str, list[float]]] = {}
-    for shape, shape_plans in BWD_PLANS.items():
-        _, fn = jobs[f"attention_bwd_call_{shape}"]
-        for plan in shape_plans + shape_plans[::-1]:
-            us = device_us(lambda: fn(libs["this"], plan), None)
-            plans.setdefault(shape, {}).setdefault(str(list(plan)), []).append(us)
+    plans: dict[str, dict[str, dict[str, list[float]]]] = {"fwd": {}, "bwd": {}}
+    for kind, all_plans, job, kernel in (
+        ("fwd", FWD_PLANS, "attention_fwd_{}", "attention_fwd_kernel"),
+        ("bwd", BWD_PLANS, "attention_bwd_call_{}", None),
+    ):
+        for shape, shape_plans in all_plans.items():
+            _, fn = jobs[job.format(shape)]
+            for plan in shape_plans + shape_plans[::-1]:
+                us = device_us(lambda: fn(libs["this"], plan), kernel)
+                plans[kind].setdefault(shape, {}).setdefault(str(list(plan)), []).append(us)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     print(json.dumps({"card": smi, "base": str(trees["base"]), "device_us": times,
-                      "bwd_plans_device_us": plans}))
+                      "fwd_plans_device_us": plans["fwd"], "bwd_plans_device_us": plans["bwd"]}))
     return 0
 
 
