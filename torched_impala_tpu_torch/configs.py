@@ -148,11 +148,12 @@ PRESETS = {c.name: c for c in (CARTPOLE, PONG, BREAKOUT, PONG_TRANSFORMER)}
 # when its score matrix (T+1) x (W+T+1) reaches this many elements.
 # chip_smoke.py's attention phase times fwd + bwd of the kernels against
 # the einsum branch on an NVIDIA H100 80GB HBM3 (700 W), f32, H = 4,
-# dh = 64, W = 128, with both attention kernels on the tensor cores: at
-# B = 32, T = 21 (the pong_transformer learner, 3,129 elements) 0.350 ms
-# against 0.853 ms, at B = 2, T = 1024 (1,179,648) 0.413 ms against
-# 0.796 ms (CUDA events). The kernels won at both, so the threshold sits
-# at the smaller; no smaller shape was measured.
+# dh = 64, W = 128, with both attention kernels on the tensor cores, in
+# two runs: at B = 32, T = 21 (the pong_transformer learner, 3,129
+# elements) 0.350-0.456 ms against 0.717-0.853 ms, at B = 2, T = 1024
+# (1,179,648) 0.413-0.483 ms against 0.796-0.864 ms (CUDA events). The
+# kernels won at both, so the threshold sits at the smaller; no smaller
+# shape was measured.
 KERNEL_MIN_SCORE_ELEMS = 21 * 149
 
 
