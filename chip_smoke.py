@@ -10,11 +10,13 @@ non-zero (no phase's failure is caught):
 2. build: nvcc builds every kernel from csrc/ (one process per source,
    all at once); the seconds it took.
 3. vtrace: the CUDA kernel against its plain PyTorch version on the card
-   over shapes x clip thresholds x lambda (max abs error <= 1e-5) and
-   with a NaN log-ratio (the same NaN pattern as the plain version), its
-   time beside the plain version's and its bound at the Pong shape, and
-   `impala_loss` through the kernel against `impala_loss` through the
-   plain V-trace (total and grads, rtol 1e-5).
+   over shapes x clip thresholds x lambda (max abs error <= 1e-5; T = 33
+   and 1000 carry the recursion across 32-step chunks) and with a NaN
+   log-ratio (the same NaN pattern as the plain version), its time beside
+   the plain version's and its bound at the Pong shape, its device time at
+   B = 32 for T = 20, 100 and 1000, and `impala_loss` through the kernel
+   against `impala_loss` through the plain V-trace (total and grads, rtol
+   1e-5).
 4. lstm: the LSTM-cell kernel against its plain version at the learner's
    (B=32, F=H=256) and the actor's (B=8) shapes and five ragged ones
    (max abs error <= 5e-5: f32 sums of up to 768 products in another
@@ -34,13 +36,18 @@ non-zero (no phase's failure is caught):
    autograd.Function (rtol 1e-4, atol 1e-5 x the gradient's largest
    magnitude); times at the learner's and the actor's shapes, bound and
    the cuDNN baseline (two F.conv2d calls with the relus and the add).
-6. fused_loss: the fused V-trace loss kernel against its plain version
+6. fused_loss: the fused loss's forward kernel against its plain version
    at (T, B, A) = (20, 32, 6), (100, 32, 15), (1, 1, 2), (7, 130, 4) x
-   the three threshold sets x lambda, with a mask with zeros (vs and the
-   advantages <= 1e-5 absolute, the three sums rtol 1e-5), and the whole
-   loss through the kernel against the loss through the plain sums,
-   reductions sum and mean (logs and gradients rtol 1e-5); times and
-   bound at the Pong shape (no single PyTorch call computes it).
+   the three threshold sets x lambda, with a mask with zeros (the five
+   sums rtol 1e-5; lse and the entropy <= 1e-5 absolute; vs and the
+   advantages 1e-5 absolute and relative), its backward kernel against its plain version (rtol 1e-5,
+   atol 1e-6 x the largest gradient), two launches of each bit-identical,
+   and the whole loss through both kernels (one launch of each a call)
+   against the loss through the plain versions, reductions sum and mean
+   (logs and gradients rtol 1e-5); times, device times and bounds of each
+   kernel at the pong_transformer shape (20, 32, 6), and of one loss call
+   with its backward, every kernel it launches summed (no single PyTorch
+   call computes either kernel).
 7. attention: both kernels' machine code holds `HMMA` (mma.sync)
    instructions in each of their ten instantiations; the forward and the
    backward (one call: dq, dk and dv) against their plain versions at the
@@ -77,8 +84,8 @@ non-zero (no phase's failure is caught):
    (Nature-CNN bf16 torso, transformer core d_model 256, 2 layers, 4
    heads, window 128) for 12 learner steps with the attention kernels
    forced and `fused_epilogue=True`; it must launch the attention
-   forward and backward >= 2 times a learner step each, the fused loss
-   >= once and V-trace never.
+   forward and backward >= 2 times a learner step each, the fused loss's
+   forward and backward >= once each and V-trace never.
 
 Then the `kernels` line, the card's name and power limit, and the last
 line `{"ok": true, "device": {...}}`. Without CUDA it exits 2 and prints
@@ -106,7 +113,13 @@ PEAK_F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 # slower than the kernels themselves.
 PEAK_TF32_SPLIT_OPS_PER_S = 495e12 / 3
 PEAK_BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
-KERNEL_SHAPES = [(20, 32), (100, 32), (20, 256), (1, 1), (7, 130)]
+# V-trace (T, B): the Pong shape first (timed), then longer unrolls, wider
+# batches, one step over a 32-step chunk with a ragged second tile, and
+# ragged ones.
+KERNEL_SHAPES = [(20, 32), (100, 32), (20, 256), (1, 1), (7, 130), (33, 33), (1000, 32)]
+# Unroll lengths of the V-trace kernel's device-time sweep at B = 32: the
+# slope is what each step of T costs.
+VTRACE_SWEEP_T = (20, 100, 1000)
 THRESHOLDS = [
     dict(),
     dict(clip_rho_threshold=None, clip_c_threshold=None, clip_pg_rho_threshold=None),
@@ -143,6 +156,8 @@ ATTN_RAGGED = [(3, 1, 2, 16, 0), (3, 9, 2, 16, 7), (5, 40, 3, 32, 19)]
 ATTN_WIDTHS = [(3, 9, 2, 8, 7), (2, 40, 2, 128, 19)]
 ATTN_F32_ATOL = 2e-5
 PONG_TRANSFORMER_STEPS = 12
+# Kernels that share a source file with another.
+SOURCES = {"fused_loss_fwd": "fused_loss", "fused_loss_bwd": "fused_loss"}
 
 
 START = time.monotonic()
@@ -289,6 +304,12 @@ def phase_vtrace(device):
     device_us, _ = profiling.device_us(
         lambda: vtrace_cuda.vtrace_cuda(**x), name="vtrace_kernel"
     )
+    sweep_us = {}
+    for T_sweep in VTRACE_SWEEP_T:
+        xs = vtrace_inputs(T_sweep, B, seed=T_sweep, device=device)
+        sweep_us[str(T_sweep)], _ = profiling.device_us(
+            lambda: vtrace_cuda.vtrace_cuda(**xs), calls=100, name="vtrace_kernel"
+        )
     bytes_moved = (4 * T * B + B) * 4 + 3 * T * B * 4
     # Per element: exp, three clips, and 12 multiplies/adds of the
     # recursion and the two output formulas.
@@ -342,6 +363,7 @@ def phase_vtrace(device):
             "plain_us": plain_ms * 1e3,
             "wrapper_host_us": wrapper_host_us,
             "kernel_device_us_profiler": device_us,
+            "device_us_by_T_at_B32": sweep_us,
             "bound_us": bound_s * 1e6,
             "bound_by": bound_by,
             "bytes": bytes_moved,
@@ -615,21 +637,48 @@ def loss_inputs(T, B, A, seed, device, mask_zeros=True):
     )
 
 
-def fused_scalars(x):
-    """The kernel's [T, B] operands from `loss_inputs`, as the fused
-    loss's forward makes them."""
-    import torch
-    import torch.nn.functional as F
+def fused_args(x):
+    """The fused loss forward's operands from `loss_inputs`, in the order of
+    `fused_core_reference`."""
+    return tuple(x[k] for k in ("target_logits", "behaviour_logits", "actions", "values",
+                                "bootstrap_value", "discounts", "rewards", "mask"))
 
-    log_p = F.log_softmax(x["target_logits"], dim=-1)
-    a = x["actions"][..., None]
-    log_pi_a = torch.gather(log_p, -1, a)[..., 0].contiguous()
-    log_mu_a = torch.gather(F.log_softmax(x["behaviour_logits"], dim=-1), -1, a)[..., 0]
-    ent = (-(log_p.exp() * log_p).sum(-1)).contiguous()
-    return (
-        log_pi_a, ent, x["values"], x["bootstrap_value"],
-        (log_pi_a - log_mu_a).contiguous(), x["discounts"], x["rewards"], x["mask"],
-    )
+
+def fused_bwd_args(args, seed):
+    """The backward's operands after the plain forward of `args`, with three
+    cotangents made from `seed`."""
+    import torch
+
+    from torched_impala_tpu_torch.ops import fused_loss
+
+    z, _, actions, values, _, _, _, mask = args
+    out = fused_loss.fused_core_reference(*args)
+    g = np.random.default_rng(seed).normal(size=3)
+    cot = [torch.tensor(float(v), dtype=torch.float32, device=z.device) for v in g]
+    return (z, out.lse, out.ent, out.adv, out.vs, values, mask, actions, *cot)
+
+
+def fused_work(T, B, A):
+    """(forward bytes, forward ops, backward bytes, backward ops) of the two
+    fused-loss kernels at (T, B, A): each input read once and each output
+    written once; f32 operations counted from the formulas."""
+    tb, tba = T * B, T * B * A
+    # Forward: both logit cubes, int64 actions, values, discounts, rewards,
+    # mask and the bootstrap read; vs, adv, lse, entropy and five sums
+    # written. Per logit entry 13 operations (the target row's max, the
+    # exp sum, log p, p * log p and its sum; the behaviour row's max and
+    # exp sum); per step 32 (the V-trace's 16, log pi(a), log mu(a), the
+    # log-ratio, lse and the five sums' terms).
+    fwd_bytes = 2 * tba * 4 + tb * 8 + (4 * tb + B) * 4 + 4 * tb * 4 + 5 * 4
+    fwd_ops = 13 * tba + 32 * tb
+    # Backward: the logits, lse, entropy, adv, vs, values, mask, int64
+    # actions and three cotangents read; dL/dz and dL/dvalues written. Per
+    # logit entry 12 operations (log p, exp, p * log p, the two
+    # coefficients, c1, the two products, the difference, the action's
+    # add); per step 3 for dL/dvalues.
+    bwd_bytes = tba * 4 + 6 * tb * 4 + tb * 8 + 3 * 4 + tba * 4 + tb * 4
+    bwd_ops = 12 * tba + 3 * tb
+    return fwd_bytes, fwd_ops, bwd_bytes, bwd_ops
 
 
 def phase_fused_loss(device):
@@ -638,10 +687,16 @@ def phase_fused_loss(device):
     from torched_impala_tpu_torch.ops import fused_loss, fused_loss_cuda, losses, profiling
     from torched_impala_tpu_torch.ops.vtrace import threshold
 
-    worst_tb, worst_sum_rel, per_shape = 0.0, 0.0, {}
+    # The forward against its plain version: the five sums rtol 1e-5; lse
+    # and the entropy 1e-5 absolute; vs and adv 1e-5 absolute and relative
+    # (the kernel forms its own log-ratios, an ulp from the plain
+    # version's, and unclipped weights carry that ulp into targets of
+    # magnitude ~1e3, where one f32 ulp is above 1e-5). The backward
+    # against its plain version: rtol 1e-5, atol 1e-6 x the largest
+    # gradient. Two launches of each bit-identical.
+    fwd_err, fwd_rel, sums_rel, bwd_err, bwd_rel, per_shape = 0.0, 0.0, 0.0, 0.0, 0.0, {}
     for T, B, A in FUSED_SHAPES:
-        x = loss_inputs(T, B, A, seed=T * 100 + B, device=device)
-        args = fused_scalars(x)
+        args = fused_args(loss_inputs(T, B, A, seed=T * 100 + B, device=device))
         err = 0.0
         for clips in THRESHOLDS:
             kw = dict(
@@ -650,21 +705,39 @@ def phase_fused_loss(device):
                 clip_pg_rho=threshold(clips.get("clip_pg_rho_threshold", 1.0)),
             )
             for lambda_ in (1.0, 0.9):
-                out = fused_loss_cuda.fused_sums_cuda(*args, **kw, lambda_=lambda_)
-                ref = fused_loss.fused_sums_reference(*args, **kw, lambda_=lambda_)
+                out = fused_loss_cuda.fused_loss_fwd(*args, **kw, lambda_=lambda_)
+                again = fused_loss_cuda.fused_loss_fwd(*args, **kw, lambda_=lambda_)
+                ref = fused_loss.fused_core_reference(*args, **kw, lambda_=lambda_)
                 torch.cuda.synchronize()
-                for a, b in zip(out[:3], ref[:3]):
-                    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
-                    worst_sum_rel = max(worst_sum_rel, float((a - b).abs() / b.abs().clamp(min=1e-6)))
-                for a, b in zip(out[3:], ref[3:]):
+                if not all(torch.equal(a, b) for a, b in zip(out, again)):
+                    raise AssertionError(f"fused_loss_fwd: two launches differ at {(T, B, A)}")
+                torch.testing.assert_close(out.sums, ref.sums, rtol=1e-5, atol=1e-6)
+                sums_rel = max(sums_rel, float(((out.sums - ref.sums).abs()
+                                                / ref.sums.abs().clamp(min=1e-6)).max()))
+                for a, b in zip(out[1:], ref[1:]):
                     err = max(err, float((a - b).abs().max()))
+                for a, b in zip(out[1:3], ref[1:3]):
+                    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+                    fwd_rel = max(fwd_rel, float(((a - b).abs() / b.abs().clamp(min=1e-6)).max()))
+                for a, b in zip(out[3:], ref[3:]):
+                    torch.testing.assert_close(a, b, rtol=0.0, atol=1e-5)
+        bwd = fused_bwd_args(args, seed=T + A)
+        got = fused_loss_cuda.fused_loss_bwd(*bwd)
+        again = fused_loss_cuda.fused_loss_bwd(*bwd)
+        ref = fused_loss.fused_core_backward_reference(*bwd)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"fused_loss_bwd: two launches differ at {(T, B, A)}")
+        for a, b in zip(got, ref):
+            scale = float(b.abs().max())
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * scale)
+            bwd_err = max(bwd_err, float((a - b).abs().max()))
+            bwd_rel = max(bwd_rel, float((a - b).abs().max()) / max(scale, 1e-30))
         per_shape[f"{T}x{B}x{A}"] = err
-        worst_tb = max(worst_tb, err)
-    if not worst_tb <= 1e-5:
-        raise AssertionError(f"fused loss kernel vs plain: vs/adv max abs err {per_shape}")
+        fwd_err = max(fwd_err, err)
 
-    # The whole loss through the kernel against the loss through the plain
-    # sums, all else identical on the card: total, logs and gradients.
+    # The whole loss through the two kernels against the loss through the
+    # plain versions, all else identical on the card: logs and gradients.
     loss_err = 0.0
     for T, B, A in FUSED_SHAPES:
         for clips in THRESHOLDS:
@@ -678,54 +751,79 @@ def phase_fused_loss(device):
                     g = torch.autograd.grad(out.total, list(leaves.values()))
                     return out, g
 
+                before = dict(fused_loss_cuda.LAUNCHES)
                 out_k, grads_k = loss_and_grads()
-                real = fused_loss.fused_sums
-                fused_loss.fused_sums = fused_loss.fused_sums_reference
+                if fused_loss_cuda.LAUNCHES != {k: v + 1 for k, v in before.items()}:
+                    raise AssertionError(f"fused loss call: launches {before} -> {fused_loss_cuda.LAUNCHES}")
+                real = fused_loss.fused_core, fused_loss.fused_core_backward
+                fused_loss.fused_core = fused_loss.fused_core_reference
+                fused_loss.fused_core_backward = fused_loss.fused_core_backward_reference
                 try:
                     out_p, grads_p = loss_and_grads()
                 finally:
-                    fused_loss.fused_sums = real
+                    fused_loss.fused_core, fused_loss.fused_core_backward = real
                 for key in out_p.logs:
                     torch.testing.assert_close(out_k.logs[key], out_p.logs[key], rtol=1e-5, atol=1e-6)
                 for gk, gp in zip(grads_k, grads_p):
                     torch.testing.assert_close(gk, gp, rtol=1e-5, atol=1e-6)
                     loss_err = max(loss_err, float((gk - gp).abs().max()))
 
+    # Times at the pong_transformer learner's shape: each kernel and its
+    # plain version (events), each kernel's device time, and one loss call
+    # with its backward, every kernel it launches summed (the function
+    # level that the kernels replace).
     T, B, A = FUSED_SHAPES[0]
-    args = fused_scalars(loss_inputs(T, B, A, seed=7, device=device))
-    kernel_ms = time_cuda(lambda: fused_loss_cuda.fused_sums_cuda(*args))
-    plain_ms = time_cuda(lambda: fused_loss.fused_sums_reference(*args))
-    device_us, _ = profiling.device_us(
-        lambda: fused_loss_cuda.fused_sums_cuda(*args), name="fused_loss_kernel"
-    )
-    # Seven [T, B] inputs and the bootstrap read, vs, adv and one row of
-    # three partial sums written.
-    bytes_moved = (7 * T * B + B) * 4 + 2 * T * B * 4 + 3 * 4
-    # Per element: the V-trace's 16 (csrc/vtrace.cu's count) and the
-    # three masked terms' 8 multiplies and adds.
-    ops = 24 * T * B
-    bound_ms, bound_by = bound(bytes_moved, ops, PEAK_F32_OPS_PER_S)
+    x = loss_inputs(T, B, A, seed=7, device=device)
+    args = fused_args(x)
+    bwd = fused_bwd_args(args, seed=8)
+    cfg = losses.ImpalaLossConfig(fused_epilogue=True)
+
+    def loss_call():
+        leaves = {k: x[k].clone().requires_grad_() for k in ("target_logits", "values")}
+        out = losses.impala_loss(**{**x, **leaves}, config=cfg)
+        torch.autograd.grad(out.total, list(leaves.values()))
+
+    fwd_bytes, fwd_ops, bwd_bytes, bwd_ops = fused_work(T, B, A)
+    result, line = {}, {}
+    for name, fn, plain, n_bytes, ops in (
+        ("fwd", lambda: fused_loss_cuda.fused_loss_fwd(*args),
+         lambda: fused_loss.fused_core_reference(*args), fwd_bytes, fwd_ops),
+        ("bwd", lambda: fused_loss_cuda.fused_loss_bwd(*bwd),
+         lambda: fused_loss.fused_core_backward_reference(*bwd), bwd_bytes, bwd_ops),
+    ):
+        kernel_ms = time_cuda(fn)
+        plain_ms = time_cuda(plain)
+        device_us, _ = profiling.device_us(fn, name=f"fused_loss_{name}_kernel")
+        bound_ms, bound_by = bound(n_bytes, ops, PEAK_F32_OPS_PER_S)
+        line.update({
+            f"{name}_us": kernel_ms * 1e3, f"{name}_plain_us": plain_ms * 1e3,
+            f"{name}_device_us_profiler": device_us, f"{name}_bound_us": bound_ms * 1e3,
+            f"{name}_bound_by": bound_by, f"{name}_bytes": n_bytes, f"{name}_ops": ops,
+        })
+        result[f"fused_loss_{name}"] = dict(
+            max_abs_err=fwd_err if name == "fwd" else bwd_err, ms=kernel_ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        )
+    call_us, call_kernels = profiling.device_us(loss_call)
     emit(
         {
             "phase": "fused_loss",
-            "vs_adv_max_abs_err": worst_tb,
-            "vs_adv_max_abs_err_by_shape": per_shape,
-            "sums_max_rel_err": worst_sum_rel,
+            "fwd_max_abs_err": fwd_err,
+            "fwd_max_abs_err_by_shape": per_shape,
+            "fwd_vs_adv_max_rel_err": fwd_rel,
+            "sums_max_rel_err": sums_rel,
+            "bwd_max_abs_err": bwd_err,
+            "bwd_max_err_over_largest": bwd_rel,
             "loss_grad_max_abs_diff": loss_err,
-            "pong_shape": [T, B, A],
-            "kernel_us": kernel_ms * 1e3,
-            "plain_us": plain_ms * 1e3,
-            "kernel_device_us_profiler": device_us,
-            "bound_us": bound_ms * 1e3,
-            "bound_by": bound_by,
-            "bytes": bytes_moved,
+            "pong_transformer_shape": [T, B, A],
+            **line,
+            "loss_call_fwd_bwd_us": time_cuda(loss_call, iters=50, warmup=5) * 1e3,
+            "loss_call_fwd_bwd_device_us": call_us,
+            "loss_call_fwd_bwd_kernels": call_kernels,
             "library_call": None,
         }
     )
-    return dict(
-        max_abs_err=worst_tb, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=None,
-    )
+    return result
 
 
 def attention_inputs(B, T, H, dh, W, seed, device, dtype="float32"):
@@ -1167,26 +1265,31 @@ def _wrappers():
         attention_cuda, conv_block_cuda, fused_loss_cuda, lstm_cuda, vtrace_cuda,
     )
 
-    return attention_cuda, {
+    return {
         "vtrace": vtrace_cuda, "lstm_cell": lstm_cuda, "resblock": conv_block_cuda,
-        "fused_loss": fused_loss_cuda,
+        "fused_loss": fused_loss_cuda, "attention": attention_cuda,
     }
 
 
 def read_launches() -> dict:
-    """Every kernel wrapper's launch count, by kernel name."""
-    attention_cuda, modules = _wrappers()
-    counts = {name: module.LAUNCHES for name, module in modules.items()}
-    counts.update({f"attention_{k}": v for k, v in attention_cuda.LAUNCHES.items()})
+    """Every kernel wrapper's launch count, by kernel name (a wrapper of two
+    kernels counts each: attention_fwd, fused_loss_bwd, ...)."""
+    counts = {}
+    for name, module in _wrappers().items():
+        if isinstance(module.LAUNCHES, dict):
+            counts.update({f"{name}_{k}": v for k, v in module.LAUNCHES.items()})
+        else:
+            counts[name] = module.LAUNCHES
     return counts
 
 
 def zero_launches() -> None:
-    attention_cuda, modules = _wrappers()
-    for module in modules.values():
-        module.LAUNCHES = 0
-    for key in attention_cuda.LAUNCHES:
-        attention_cuda.LAUNCHES[key] = 0
+    for module in _wrappers().values():
+        if isinstance(module.LAUNCHES, dict):
+            for key in module.LAUNCHES:
+                module.LAUNCHES[key] = 0
+        else:
+            module.LAUNCHES = 0
 
 
 def phase_pong(device):
@@ -1250,8 +1353,9 @@ def phase_pong_transformer(device):
     for key in ("attention_fwd", "attention_bwd"):
         if launches[key] < cfg.transformer_layers * steps:
             raise AssertionError(f"pong_transformer: {launches[key]} {key} launches < 2 a step")
-    if launches["fused_loss"] < steps:
-        raise AssertionError(f"pong_transformer: {launches['fused_loss']} fused_loss launches < 1 a step")
+    for key in ("fused_loss_fwd", "fused_loss_bwd"):
+        if launches[key] < steps:
+            raise AssertionError(f"pong_transformer: {launches[key]} {key} launches < 1 a step")
     if launches["vtrace"] != 0:
         raise AssertionError(f"pong_transformer: {launches['vtrace']} vtrace launches, fused")
     return launches
@@ -1274,7 +1378,7 @@ def main() -> int:
         "vtrace": dict(phase_vtrace(device), library_ms=None),
         "lstm_cell": phase_lstm(device),
         "resblock": phase_resblock(device),
-        "fused_loss": phase_fused_loss(device),
+        **phase_fused_loss(device),
         **phase_attention(device),
     }
     phase_model(device)
@@ -1285,13 +1389,14 @@ def main() -> int:
         "resblock": phase_breakout(device, fused=True)["resblock"],
     }
     transformer_launches = phase_pong_transformer(device)
-    for name in ("fused_loss", "attention_fwd", "attention_bwd"):
+    for name in ("fused_loss_fwd", "fused_loss_bwd", "attention_fwd", "attention_bwd"):
         launches[name] = transformer_launches[name]
     replaces = {
         "vtrace": "torched_impala_tpu/ops/vtrace_pallas.py:92",
         "lstm_cell": "torched_impala_tpu/ops/lstm_pallas.py:78",
         "resblock": "torched_impala_tpu/ops/conv_pallas.py:76",
-        "fused_loss": "torched_impala_tpu/ops/vtrace_pallas.py:267",
+        "fused_loss_fwd": "torched_impala_tpu/ops/vtrace_pallas.py:267",
+        "fused_loss_bwd": "torched_impala_tpu/ops/vtrace_pallas.py:384",
         "attention_fwd": "torched_impala_tpu/ops/attention_pallas.py:251",
         "attention_bwd": "torched_impala_tpu/ops/attention_pallas.py:409",
     }
@@ -1301,7 +1406,7 @@ def main() -> int:
                 {
                     "name": name,
                     "route": "cuda",
-                    "source": f"torched_impala_tpu_torch/csrc/{name}.cu",
+                    "source": f"torched_impala_tpu_torch/csrc/{SOURCES.get(name, name)}.cu",
                     "replaces": replaces[name],
                     "launches": launches[name],
                     **{

@@ -27,9 +27,15 @@ Tolerances, each kernel against its plain version on the same card:
   atol 1e-5 (LSTM) or 1e-5 times the gradient's largest magnitude
   (residual block, whose loss feeds the forward's rounding into sums
   over N*H*W positions).
-- Fused loss: vs and advantages 1e-5 absolute (the V-trace kernel's
-  rounding, the same order); the three sums rtol 1e-5 (f32 sums in
-  another order); the loss's total and gradients rtol 1e-5.
+- Fused loss: the forward's lse and entropy 1e-5 absolute (sums of A
+  terms in another order), vs and advantages 1e-5 absolute and relative
+  (the kernel forms its own log-ratios, an ulp from the plain version's,
+  which unclipped weights carry into large targets); its five sums rtol
+  1e-5 (f32 sums in another
+  order); the backward's gradients rtol 1e-5 and atol 1e-6 times the
+  largest (the same formula, exp and the forward's lse apart by an ulp);
+  two launches of each bit-identical; the loss's total and gradients
+  through both kernels rtol 1e-5.
 - Attention: forward 2e-5 absolute in f32 (online softmax against the
   plain softmax, sums of dh and S terms in another order); dq, dk and dv
   rtol 1e-4 and atol 1e-5 times the largest of the three gradients; bf16
@@ -101,6 +107,25 @@ def test_vtrace_kernel_matches_reference(cuda, T, B, clips):
         before = vtrace_cuda.LAUNCHES
         out = vtrace_cuda.vtrace_cuda(**x, **kwargs)
         assert vtrace_cuda.LAUNCHES == before + 1
+        ref = port_vtrace.vtrace_reference(**x, **kwargs)
+        torch.cuda.synchronize()
+        for a, b in zip(out, ref):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("clips", sorted(THRESHOLDS))
+@pytest.mark.parametrize("T,B", [(32, 32), (33, 33), (65, 5), (1000, 32)])
+def test_vtrace_kernel_across_chunks_matches_reference(cuda, T, B, clips):
+    """The staged kernel carries acc, V and vs across chunks of 32 steps
+    and tiles of 32 columns (a chunk exactly full, one step over, a ragged
+    last chunk, a long unroll): the same 1e-5 gate."""
+    from torched_impala_tpu_torch.ops import vtrace_cuda
+
+    x = _inputs(T, B, seed=T + B, device=cuda)
+    for lambda_ in (1.0, 0.9):
+        kwargs = dict(THRESHOLDS[clips], lambda_=lambda_)
+        out = vtrace_cuda.vtrace_cuda(**x, **kwargs)
         ref = port_vtrace.vtrace_reference(**x, **kwargs)
         torch.cuda.synchronize()
         for a, b in zip(out, ref):
@@ -487,20 +512,39 @@ def _loss_inputs(T, B, A, seed, device):
     )
 
 
-def _fused_args(T, B, seed, device):
-    """The fused kernel's [T, B] operands: log pi(a), entropy, values,
-    bootstrap, log-ratios, discounts, rewards, mask."""
-    x = _inputs(T, B, seed, device)
-    rng = np.random.default_rng(seed + 1)
+def _fused_args(T, B, A, seed, device):
+    """The fused loss forward's operands: target and behaviour logits,
+    int64 actions, values, bootstrap, discounts, rewards and a mask with
+    zeros."""
+    x = _loss_inputs(T, B, A, seed, device)
+    return tuple(x[k] for k in ("target_logits", "behaviour_logits", "actions", "values",
+                                "bootstrap_value", "discounts", "rewards", "mask"))
 
-    def t(a):
-        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
 
-    return (
-        t(-rng.uniform(0.1, 3.0, size=(T, B))), t(rng.uniform(0.0, 1.8, size=(T, B))),
-        x["values"], x["bootstrap_value"], x["log_rhos"], x["discounts"], x["rewards"],
-        t(rng.uniform(size=(T, B)) > 0.2),
-    )
+def _fused_kw(clips, lambda_=1.0):
+    from torched_impala_tpu_torch.ops.vtrace import threshold
+
+    kw = {k: threshold(THRESHOLDS[clips].get(f"{k}_threshold", 1.0))
+          for k in ("clip_rho", "clip_c", "clip_pg_rho")}
+    return dict(kw, lambda_=lambda_)
+
+
+def _fused_bwd_args(args, seed, kw=None):
+    """The backward's operands after the plain forward of `args`: logits,
+    lse, entropy, adv, vs, values, mask, actions and three cotangents."""
+    from torched_impala_tpu_torch.ops import fused_loss
+
+    z, _, actions, values, _, _, _, mask = args
+    out = fused_loss.fused_core_reference(*args, **(kw or {}))
+    rng = np.random.default_rng(seed)
+    g = [torch.tensor(float(v), dtype=torch.float32, device=z.device) for v in rng.normal(size=3)]
+    return (z, out.lse, out.ent, out.adv, out.vs, values, mask, actions, *g)
+
+
+def _assert_bwd_close(got, ref):
+    """dL/dz and dL/dvalues at rtol 1e-5, atol 1e-6 x the largest."""
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * float(b.abs().max()))
 
 
 def _attn_inputs(B, T, H, dh, W, seed, device, dtype=torch.float32):
@@ -524,26 +568,128 @@ def _attn_inputs(B, T, H, dh, W, seed, device, dtype=torch.float32):
 @pytest.mark.parametrize("clips", sorted(THRESHOLDS))
 @pytest.mark.parametrize("T,B,A", FUSED_SHAPES)
 def test_fused_loss_kernel_matches_reference(cuda, T, B, A, clips):
+    """The forward kernel against `fused_core_reference`: the five sums
+    rtol 1e-5; lse and the entropy 1e-5 absolute; vs and adv 1e-5 absolute
+    and relative (their log-ratios are the kernel's own, an ulp from the
+    plain version's, and unclipped weights carry that ulp into targets of
+    magnitude up to ~2e3 here, where one f32 ulp is above 1e-5)."""
     from torched_impala_tpu_torch.ops import fused_loss, fused_loss_cuda
-    from torched_impala_tpu_torch.ops.vtrace import threshold
 
-    args = _fused_args(T, B, seed=T + B, device=cuda)
-    kw = {k: threshold(THRESHOLDS[clips].get(f"{k}_threshold", 1.0))
-          for k in ("clip_rho", "clip_c", "clip_pg_rho")}
-    before = fused_loss_cuda.LAUNCHES
-    out = fused_loss_cuda.fused_sums_cuda(*args, **kw)
-    assert fused_loss_cuda.LAUNCHES == before + 1
-    ref = fused_loss.fused_sums_reference(*args, **kw)
+    args = _fused_args(T, B, A, seed=T + B, device=cuda)
+    for lambda_ in (1.0, 0.9):
+        kw = _fused_kw(clips, lambda_)
+        before = dict(fused_loss_cuda.LAUNCHES)
+        out = fused_loss_cuda.fused_loss_fwd(*args, **kw)
+        assert fused_loss_cuda.LAUNCHES == dict(before, fwd=before["fwd"] + 1)
+        ref = fused_loss.fused_core_reference(*args, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.sums, ref.sums, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(out.vs, ref.vs, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(out.adv, ref.adv, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(out.lse, ref.lse, rtol=0.0, atol=1e-5)
+        torch.testing.assert_close(out.ent, ref.ent, rtol=0.0, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,B,A", FUSED_SHAPES + [(20, 32, 18), (3, 70, 100)])
+def test_fused_loss_backward_kernel_matches_reference(cuda, T, B, A):
+    """The backward kernel against `fused_core_backward_reference` on the
+    plain forward's residuals, any cotangents: rtol 1e-5, atol 1e-6 x the
+    largest."""
+    from torched_impala_tpu_torch.ops import fused_loss, fused_loss_cuda
+
+    bwd = _fused_bwd_args(_fused_args(T, B, A, seed=T * B, device=cuda), seed=A)
+    before = dict(fused_loss_cuda.LAUNCHES)
+    got = fused_loss_cuda.fused_loss_bwd(*bwd)
+    assert fused_loss_cuda.LAUNCHES == dict(before, bwd=before["bwd"] + 1)
+    ref = fused_loss.fused_core_backward_reference(*bwd)
     torch.cuda.synchronize()
-    torch.testing.assert_close(out.vs, ref.vs, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(out.adv, ref.adv, rtol=1e-5, atol=1e-5)
-    for a, b in zip(out[:3], ref[:3]):
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    _assert_bwd_close(got, ref)
+
+
+@pytest.mark.gpu
+def test_fused_loss_kernels_pass_non_finite_rows_through(cuda):
+    """A -inf target logit, a NaN behaviour logit and a NaN value give NaN
+    where the plain versions give NaN, and the finite rest agrees."""
+    from torched_impala_tpu_torch.ops import fused_loss, fused_loss_cuda
+
+    args = list(_fused_args(20, 32, 6, seed=4, device=cuda))
+    args[0][3, 5, 2] = float("-inf")
+    args[1][7, 1, 0] = float("nan")
+    args[3][11, 9] = float("nan")
+    out = fused_loss_cuda.fused_loss_fwd(*args)
+    ref = fused_loss.fused_core_reference(*args)
+    bwd = _fused_bwd_args(args, seed=0)
+    got_b = fused_loss_cuda.fused_loss_bwd(*bwd)
+    ref_b = fused_loss.fused_core_backward_reference(*bwd)
+    torch.cuda.synchronize()
+    assert all(x.isnan().any() for x in (ref.sums, ref.vs, ref.adv, ref.ent, *ref_b))
+    for a, b in zip((*out, *got_b), (*ref, *ref_b)):
+        assert torch.equal(a.isnan(), b.isnan())
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5, equal_nan=True)
+
+
+@pytest.mark.gpu
+def test_fused_loss_kernels_bit_identical_over_launches(cuda):
+    """Two launches of each kernel on the same inputs give the same bits,
+    with one column tile and with three (the sums in a fixed order)."""
+    from torched_impala_tpu_torch.ops import fused_loss_cuda
+
+    for shape in ((20, 32, 6), (100, 70, 15)):
+        args = _fused_args(*shape, seed=1, device=cuda)
+        runs = [fused_loss_cuda.fused_loss_fwd(*args) for _ in range(2)]
+        bwd = _fused_bwd_args(args, seed=2)
+        runs_b = [fused_loss_cuda.fused_loss_bwd(*bwd) for _ in range(2)]
+        torch.cuda.synchronize()
+        for first, second in (runs, runs_b):
+            assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+def test_fused_loss_concurrent_launches(cuda):
+    """Two threads launch the forward and the backward at once, at the
+    learner's shape and at a longer, wider one, 20 times each: no launch
+    is refused, and every result is the first one's, bit for bit."""
+    import threading
+
+    from torched_impala_tpu_torch.ops import fused_loss_cuda
+
+    cases = []
+    for shape in ((20, 32, 6), (100, 70, 15)):
+        args = _fused_args(*shape, seed=3, device=cuda)
+        cases.append((args, _fused_bwd_args(args, seed=4)))
+    outs, errors = [[], []], []
+    start = threading.Barrier(len(cases))
+
+    def launch(i):
+        try:
+            start.wait()
+            fwd, bwd = cases[i]
+            for _ in range(20):
+                outs[i].append((*fused_loss_cuda.fused_loss_fwd(*fwd),
+                                *fused_loss_cuda.fused_loss_bwd(*bwd)))
+            torch.cuda.synchronize()
+        except Exception as e:  # raised again below, in the test's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=launch, args=(i,)) for i in range(len(cases))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    for runs in outs:
+        assert len(runs) == 20
+        for run in runs[1:]:
+            assert all(torch.equal(a, b) for a, b in zip(run, runs[0]))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("reduction", ["sum", "mean"])
 def test_fused_loss_through_kernel_matches_plain(cuda, reduction, monkeypatch):
+    """The whole loss through the two kernels (one forward and one
+    backward launch a call) against the loss through the plain versions:
+    logs and gradients rtol 1e-5."""
     from torched_impala_tpu_torch.ops import fused_loss, fused_loss_cuda, losses
 
     x = _loss_inputs(20, 32, 6, seed=3, device=cuda)
@@ -554,10 +700,11 @@ def test_fused_loss_through_kernel_matches_plain(cuda, reduction, monkeypatch):
         out = losses.impala_loss(**{**x, **leaves}, config=cfg)
         return out, torch.autograd.grad(out.total, list(leaves.values()))
 
-    before = fused_loss_cuda.LAUNCHES
+    before = dict(fused_loss_cuda.LAUNCHES)
     out_k, g_k = loss_and_grads()
-    assert fused_loss_cuda.LAUNCHES == before + 1
-    monkeypatch.setattr(fused_loss, "fused_sums", fused_loss.fused_sums_reference)
+    assert fused_loss_cuda.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    monkeypatch.setattr(fused_loss, "fused_core", fused_loss.fused_core_reference)
+    monkeypatch.setattr(fused_loss, "fused_core_backward", fused_loss.fused_core_backward_reference)
     out_p, g_p = loss_and_grads()
     for key in out_p.logs:
         torch.testing.assert_close(out_k.logs[key], out_p.logs[key], rtol=1e-5, atol=1e-6)
@@ -850,11 +997,19 @@ def test_attention_and_fused_loss_wrappers_refuse_bad_inputs_on_cuda(cuda):
         attention_cuda.attention_backward_cuda(q, k, v, g, out.bfloat16(), lse, seg_q, seg_ctx, W)
     with pytest.raises(ValueError, match="lse has shape"):
         attention_cuda.attention_backward_cuda(q, k, v, g, out, lse[:, :1], seg_q, seg_ctx, W)
-    args = _fused_args(6, 4, seed=0, device=cuda)
+    args = _fused_args(6, 4, 3, seed=0, device=cuda)
     with pytest.raises(ValueError, match="float32"):
-        fused_loss_cuda.fused_sums_cuda(*args[:7], args[7].double())
+        fused_loss_cuda.fused_loss_fwd(*args[:7], args[7].double())
     with pytest.raises(ValueError, match="shape"):
-        fused_loss_cuda.fused_sums_cuda(*args[:3], args[3][:2], *args[4:])
+        fused_loss_cuda.fused_loss_fwd(*args[:4], args[4][:2], *args[5:])
+    with pytest.raises(ValueError, match="int64"):
+        fused_loss_cuda.fused_loss_fwd(*args[:2], args[2].int(), *args[3:])
+    bwd = _fused_bwd_args(args, seed=0)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_loss_cuda.fused_loss_bwd(bwd[0].transpose(0, 1).contiguous().transpose(0, 1),
+                                       *bwd[1:])
+    with pytest.raises(ValueError, match="g_pg has shape"):
+        fused_loss_cuda.fused_loss_bwd(*bwd[:8], bwd[8][None], *bwd[9:])
 
 
 def test_wrappers_refuse_cpu_tensors():
@@ -869,8 +1024,11 @@ def test_wrappers_refuse_cpu_tensors():
         conv_block_cuda.resblock_cuda(*_block_inputs(1, 4, 4, 2, torch.float32, 0, "cpu"))
     with pytest.raises(ValueError, match="CUDA tensor"):
         vtrace_cuda.vtrace_cuda(**_inputs(3, 2, seed=0, device="cpu"))
+    args = _fused_args(3, 2, 4, seed=0, device="cpu")
     with pytest.raises(ValueError, match="CUDA tensor"):
-        fused_loss_cuda.fused_sums_cuda(*_fused_args(3, 2, seed=0, device="cpu"))
+        fused_loss_cuda.fused_loss_fwd(*args)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fused_loss_cuda.fused_loss_bwd(*_fused_bwd_args(args, seed=0))
     q, k, v, seg_q, seg_ctx, W, g = _attn_inputs(2, 5, 2, 16, 3, seed=0, device="cpu")
     out, lse = attention.windowed_attention_reference(q, k, v, seg_q, seg_ctx, W)
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -951,7 +1109,7 @@ def test_dispatch_takes_plain_version_on_cpu():
         lstm, lstm_cuda,
     )
 
-    before = (lstm_cuda.LAUNCHES, conv_block_cuda.LAUNCHES, fused_loss_cuda.LAUNCHES,
+    before = (lstm_cuda.LAUNCHES, conv_block_cuda.LAUNCHES, dict(fused_loss_cuda.LAUNCHES),
               dict(attention_cuda.LAUNCHES))
     args = _lstm_inputs(2, 3, 4, seed=0, device="cpu")
     torch.testing.assert_close(
@@ -961,8 +1119,12 @@ def test_dispatch_takes_plain_version_on_cpu():
     torch.testing.assert_close(
         conv_block.fused_residual_block(*args), conv_block.block_reference(*args), rtol=0, atol=0
     )
-    args = _fused_args(5, 3, seed=0, device="cpu")
-    for a, b in zip(fused_loss.fused_sums(*args), fused_loss.fused_sums_reference(*args)):
+    args = _fused_args(5, 3, 4, seed=0, device="cpu")
+    for a, b in zip(fused_loss.fused_core(*args), fused_loss.fused_core_reference(*args)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    bwd = _fused_bwd_args(args, seed=0)
+    for a, b in zip(fused_loss.fused_core_backward(*bwd),
+                    fused_loss.fused_core_backward_reference(*bwd)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     q, k, v, seg_q, seg_ctx, W, g = _attn_inputs(2, 5, 2, 16, 3, seed=0, device="cpu")
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -973,6 +1135,6 @@ def test_dispatch_takes_plain_version_on_cpu():
     torch.testing.assert_close(out, ref_out, rtol=0, atol=0)
     for a, b in zip(grads, refs):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    after = (lstm_cuda.LAUNCHES, conv_block_cuda.LAUNCHES, fused_loss_cuda.LAUNCHES,
+    after = (lstm_cuda.LAUNCHES, conv_block_cuda.LAUNCHES, dict(fused_loss_cuda.LAUNCHES),
              dict(attention_cuda.LAUNCHES))
     assert after == before

@@ -81,7 +81,7 @@ def _arrays(kind, T, B, round_idx):
     return out
 
 
-def _build(kind, T, B):
+def _build(kind, T, B, max_grad_norm=40.0):
     if kind == "mlp":
         jtorso, torso = JaxMLP(hidden_sizes=(16, 16)), MLPTorso(4, (16, 16))
         example = np.zeros((4,), np.float32)
@@ -95,7 +95,7 @@ def _build(kind, T, B):
             batch_size=B,
             unroll_length=T,
             loss=JaxLossConfig(vtrace_implementation="scan"),
-            max_grad_norm=40.0,
+            max_grad_norm=max_grad_norm,
             queue_capacity=STEPS * B,
         ),
         example_obs=example,
@@ -106,7 +106,7 @@ def _build(kind, T, B):
     learner = Learner(
         agent=Agent(net),
         optimizer=RMSProp(LR, decay=DECAY, eps=EPS),
-        config=LearnerConfig(batch_size=B, unroll_length=T),
+        config=LearnerConfig(batch_size=B, unroll_length=T, max_grad_norm=max_grad_norm),
         device=torch.device("cpu"),
     )
     return jlearner, learner
@@ -116,7 +116,25 @@ def _build(kind, T, B):
     "kind,T,B", [("mlp", 6, 3), ("atari", 3, 2)], ids=["mlp", "pong_width"]
 )
 def test_learner_param_trajectory_matches_jax(kind, T, B):
-    jlearner, learner = _build(kind, T, B)
+    _assert_steps_match(*_build(kind, T, B), kind, T, B)
+
+
+@pytest.mark.parametrize("max_grad_norm", [None, 0.05], ids=["unclipped", "clipped"])
+def test_learner_clip_off_and_on_matches_jax(max_grad_norm):
+    """`max_grad_norm=None` takes the unclipped step the JAX learner takes
+    (no scale, no multiply); a clip well under the gradient's norm scales
+    every step as JAX's does. Same tolerances as the trajectory test."""
+    jlearner, learner = _build("mlp", 6, 3, max_grad_norm=max_grad_norm)
+    grad_norms = _assert_steps_match(jlearner, learner, "mlp", 6, 3)
+    # Each step's norm is past 0.05, so the clipped case really clips.
+    assert min(grad_norms) > 0.05, grad_norms
+
+
+def _assert_steps_match(jlearner, learner, kind, T, B):
+    """STEPS SGD steps through both learners on the same batches; the logs
+    and the params agree after every step. Returns the port's unclipped
+    grad norms."""
+    grad_norms = []
     # The port's queue holds 2B unrolls: start its batcher first.
     learner.start()
     for r in range(STEPS):
@@ -128,6 +146,7 @@ def test_learner_param_trajectory_matches_jax(kind, T, B):
         for step in range(STEPS):
             jlogs = jlearner.step_once(timeout=300)
             plogs = learner.step_once(timeout=60)
+            grad_norms.append(float(plogs["grad_norm_unclipped"]))
             for key in LOG_KEYS:
                 np.testing.assert_allclose(
                     float(plogs[key]),
@@ -151,6 +170,7 @@ def test_learner_param_trajectory_matches_jax(kind, T, B):
         learner.join()
     assert learner.num_steps == STEPS
     assert learner.num_frames == STEPS * T * B
+    return grad_norms
 
 
 def test_get_state_set_state_round_trip():

@@ -445,7 +445,7 @@ def test_train_pong_transformer_slice_on_cpu():
     agent = configs.make_agent(cfg, seed=0)
     assert agent.net.core == "transformer" and agent.net.transformer.dense_kernel == "kernel"
     before = {k: v.detach().clone() for k, v in agent.net.state_dict().items()}
-    launches = (fused_loss_cuda.LAUNCHES, dict(attention_cuda.LAUNCHES))
+    launches = (dict(fused_loss_cuda.LAUNCHES), dict(attention_cuda.LAUNCHES))
     result = loop.train(
         agent=agent,
         env_factory=configs.make_env_factory(cfg, fake=True),

@@ -1,83 +1,122 @@
-// V-trace targets and policy-gradient advantages, one reverse pass over T.
+// V-trace targets and policy-gradient advantages, one staged pass over T.
 //
 // Replaces the Pallas TPU kernel `_vtrace_kernel` / `vtrace_pallas` of
-// torched_impala_tpu/ops/vtrace_pallas.py. The TPU kernel keeps a
-// 128-lane batch tile and its [T, 128] scratch in VMEM; here the batch
-// columns are independent threads and the recursion lives in registers.
+// torched_impala_tpu/ops/vtrace_pallas.py. The TPU kernel keeps a 128-lane
+// batch tile and its [T, 128] scratch in VMEM and runs the recursion over
+// rows of that scratch; here shared memory takes the place of VMEM.
 //
-// Design: one thread per batch column b, walking t = T-1 .. 0 with the
-// carry `acc` (= vs_t - V(x_t)), V(x_{t+1}) and vs_{t+1} in registers
-// (the bootstrap at t = T-1). Every input is read once and every output
-// written once; there is no scratch. Inputs are time-major [T, B], so
-// the 32 threads of a warp read 32 neighbouring floats of one row.
-// Blocks of 128 threads, grid ceil(B / 128); the ragged edge b >= B is
-// masked instead of padded to 128 lanes as on the TPU.
+// Design (vtrace_stage.cuh): a block of 256 threads owns 32 batch columns
+// and all of T, in chunks of 32 steps, latest first. All threads copy a
+// chunk's four [len, 32] inputs into shared memory at once with
+// `cp.async` (rows of up to 32 neighbouring floats), the
+// next chunk's copies in flight while this chunk computes (two buffers);
+// they compute rho, the clips, delta and gamma * c in parallel; one warp
+// runs the two-operation chain, one thread a column; then all threads
+// compute vs, the advantages and the errors and store them coalesced.
+// The carries between chunks are acc (a register of the chain thread),
+// and V(x_{t1}) and vs_{t1} (shared memory). Grid ceil(B / 32); the last
+// block's tile holds the ragged rest of B.
+//
+// Why staged: the first port (one thread per column walking T with its
+// own global loads) paid one memory latency a step, T in all; here the
+// loads of a chunk are issued together and the serial part reads shared
+// memory only.
 //
 // Bound: at the Pong shape (T = 20, B = 32) the kernel reads
 // 4*20*32*4 + 32*4 = 10,368 bytes and writes 3*20*32*4 = 7,680 bytes,
-// about 5 ns at 3.35 TB/s: launch latency (microseconds) bounds it, not
-// the memory or the arithmetic. Removing the launch (CUDA graphs, or
-// fusing the recursion into the loss) is later work.
+// about 5 ns at 3.35 TB/s: launch latency (microseconds) bounds it, then
+// one round trip to memory and the T-step chain.
 //
-// Numerics: expf (not __expf), f32 throughout. nvcc contracts a*b + c
-// into fused multiply-adds by default, which rounds once where the plain
-// PyTorch version rounds twice: at T = 100 with unclipped weights that
-// drift reached 4.6e-5 absolute on targets of magnitude ~50 (measured
-// on an H100 80GB HBM3), past the 1e-5 the kernel is held to. So every multiply and add
-// goes through the __fmul_rn / __fadd_rn / __fsub_rn intrinsics, which
-// nvcc never contracts, in the plain version's operation order. Against
-// the CPU reference the sums still round alike; only expf may differ by
-// an ulp, which the tests' tolerance (1e-5) allows for.
+// Numerics: expf (not __expf), f32 throughout, every multiply and add in
+// the plain version's order without fused multiply-adds
+// (vtrace_stage.cuh). Only expf may differ from the CPU's exp by an ulp,
+// which the tests' tolerance (1e-5) allows for.
 
 #include <cuda_runtime.h>
 
+#include "vtrace_stage.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;
+using vt::kChunk;
+using vt::kCols;
 
-// min(clip, rho) that passes a NaN rho through, as torch.clamp and
-// jnp.minimum do (fminf would return `clip`). An infinite clip (no
-// threshold) returns rho.
-__device__ __forceinline__ float clip_to(float clip, float rho) {
-  return rho > clip ? clip : rho;
+struct Inputs {
+  vt::Tile lr, d, r, v;  // log rho (rho after prep), discounts, rewards, values
+};
+
+// Starts the copies of chunk `c` of columns [b0, b0 + cols) into `in`.
+__device__ __forceinline__ void load_chunk(Inputs& in, const float* log_rhos,
+                                           const float* discounts, const float* rewards,
+                                           const float* values, vt::Chunk c, int b0, int cols,
+                                           int B) {
+  for (int i = threadIdx.x; i < c.len * cols; i += blockDim.x) {
+    const int tl = i / cols, j = i % cols;
+    const long g = static_cast<long>(c.t0 + tl) * B + b0 + j;
+    vt::cp_async4(&in.lr[tl][j], log_rhos + g, true);
+    vt::cp_async4(&in.d[tl][j], discounts + g, true);
+    vt::cp_async4(&in.r[tl][j], rewards + g, true);
+    vt::cp_async4(&in.v[tl][j], values + g, true);
+  }
+  vt::cp_async_commit();
 }
 
-__global__ void vtrace_kernel(const float* __restrict__ log_rhos,
-                              const float* __restrict__ discounts,
-                              const float* __restrict__ rewards,
-                              const float* __restrict__ values,
-                              const float* __restrict__ bootstrap,
-                              float* __restrict__ vs_out,
-                              float* __restrict__ pg_out,
-                              float* __restrict__ err_out,
-                              int T, int B, float clip_rho, float clip_c,
-                              float clip_pg_rho, float lambda_) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+__global__ void __launch_bounds__(kThreads) vtrace_kernel(
+    const float* __restrict__ log_rhos, const float* __restrict__ discounts,
+    const float* __restrict__ rewards, const float* __restrict__ values,
+    const float* __restrict__ bootstrap, float* __restrict__ vs_out,
+    float* __restrict__ pg_out, float* __restrict__ err_out, int T, int B, float clip_rho,
+    float clip_c, float clip_pg_rho, float lambda_) {
+  __shared__ Inputs in[2];
+  __shared__ vt::Tile delta, dc;  // delta, then acc (= vs - V); gamma * c
+  // V(x_{t1}) and vs_{t1} of each column, for the chunk before; two copies,
+  // since a chunk reads one while it writes the other.
+  __shared__ float v_after[2][kCols], vs_after[2][kCols];
+  const int tid = threadIdx.x;
+  const int b0 = blockIdx.x * kCols;
+  const int cols = min(kCols, B - b0);
+  // The bootstrap goes with the first chunk's copies: no thread waits on
+  // a load before it issues its share of them.
+  if (tid < cols) vt::cp_async4(&v_after[0][tid], bootstrap + b0 + tid, true);
+  const int chunks = (T + kChunk - 1) / kChunk;
+  load_chunk(in[0], log_rhos, discounts, rewards, values, vt::Chunk(T, 0), b0, cols, B);
   float acc = 0.0f;
-  float v_next = bootstrap[b];
-  float vs_next = v_next;
-  for (int t = T - 1; t >= 0; --t) {
-    const long i = static_cast<long>(t) * B + b;
-    const float rho = expf(log_rhos[i]);
-    const float d = discounts[i];
-    const float r = rewards[i];
-    const float v = values[i];
-    const float clipped_rho = clip_to(clip_rho, rho);
-    const float c = __fmul_rn(lambda_, clip_to(clip_c, rho));
-    // delta = clipped_rho * ((r + d * v_next) - v)
-    const float delta =
-        __fmul_rn(clipped_rho, __fsub_rn(__fadd_rn(r, __fmul_rn(d, v_next)), v));
-    // acc = delta + (d * c) * acc
-    acc = __fadd_rn(delta, __fmul_rn(__fmul_rn(d, c), acc));
-    const float vs = __fadd_rn(v, acc);
-    // pg = min(clip_pg_rho, rho) * ((r + d * vs_next) - v)
-    pg_out[i] = __fmul_rn(clip_to(clip_pg_rho, rho),
-                          __fsub_rn(__fadd_rn(r, __fmul_rn(d, vs_next)), v));
-    vs_out[i] = vs;
-    err_out[i] = acc;
-    v_next = v;
-    vs_next = vs;
+  for (int k = 0; k < chunks; ++k) {
+    const vt::Chunk c(T, k);
+    Inputs& cur = in[k & 1];
+    if (k + 1 < chunks) {
+      load_chunk(in[(k + 1) & 1], log_rhos, discounts, rewards, values, vt::Chunk(T, k + 1),
+                 b0, cols, B);
+      vt::cp_async_wait<1>();
+    } else {
+      vt::cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (k == 0 && tid < cols) vs_after[0][tid] = v_after[0][tid];
+    vt::prep(cur.lr, cur.d, cur.r, cur.v, v_after[k & 1], delta, dc, c.len, cols, clip_rho,
+             clip_c, lambda_);
+    __syncthreads();
+    if (tid < cols) acc = vt::chain(delta, dc, c.len, acc);
+    __syncthreads();
+    for (int i = tid; i < c.len * cols; i += kThreads) {
+      const int tl = i / cols, j = i % cols;
+      const float v = cur.v[tl][j];
+      const float err = delta[tl][j];
+      const float vs = __fadd_rn(v, err);
+      const float vs_next =
+          tl + 1 < c.len ? __fadd_rn(cur.v[tl + 1][j], delta[tl + 1][j]) : vs_after[k & 1][j];
+      const long g = static_cast<long>(c.t0 + tl) * B + b0 + j;
+      pg_out[g] = vt::advantage(cur.lr[tl][j], cur.r[tl][j], cur.d[tl][j], v, vs_next,
+                                clip_pg_rho);
+      vs_out[g] = vs;
+      err_out[g] = err;
+    }
+    if (tid < cols) {
+      v_after[(k + 1) & 1][tid] = cur.v[0][tid];
+      vs_after[(k + 1) & 1][tid] = __fadd_rn(cur.v[0][tid], delta[0][tid]);
+    }
+    __syncthreads();
   }
 }
 
@@ -93,9 +132,9 @@ extern "C" int vtrace_launch(const float* log_rhos, const float* discounts,
                              float lambda_, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (B + kThreads - 1) / kThreads;
+  const int blocks = (B + kCols - 1) / kCols;
   vtrace_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      log_rhos, discounts, rewards, values, bootstrap, vs_out, pg_out,
-      err_out, T, B, clip_rho, clip_c, clip_pg_rho, lambda_);
+      log_rhos, discounts, rewards, values, bootstrap, vs_out, pg_out, err_out, T, B, clip_rho,
+      clip_c, clip_pg_rho, lambda_);
   return static_cast<int>(cudaGetLastError());
 }

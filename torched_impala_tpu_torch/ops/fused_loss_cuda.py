@@ -1,16 +1,20 @@
-"""Wrapper of the hand-written fused-loss CUDA kernel (`csrc/fused_loss.cu`).
+"""Wrappers of the hand-written fused-loss CUDA kernels (`csrc/fused_loss.cu`).
 
-Replaces the Pallas TPU kernel `_fused_sums_kernel_call` of
-`torched_impala_tpu/ops/vtrace_pallas.py` (kernel `_fused_loss_kernel`).
-The source's header note gives the design (one thread per batch column,
-per-block partial sums added in a fixed order) and the bound (launch
-latency at the Pong shape). Its plain version is
-`ops/fused_loss.py:fused_sums_reference`.
+Replace the Pallas TPU kernel `_fused_sums_kernel_call` of
+`torched_impala_tpu/ops/vtrace_pallas.py` (kernel `_fused_loss_kernel`)
+together with the XLA around it in `_fused_core_fwd` and
+`_fused_core_bwd`. The source's header note gives the design (the
+forward: a cluster of 8 blocks, each a share of the batch columns, rows of
+the logits by lane groups, the staged V-trace, the sums in a fixed order
+across the cluster; the backward: one thread an element of the logit
+cube) and the bound (launch latency at the learner's shape). Their
+plain versions are `ops/fused_loss.py:fused_core_reference` and
+`fused_core_backward_reference`.
 
-The wrapper checks its inputs, allocates the outputs and launches on
-PyTorch's current stream. It has no fallback: a CPU, non-f32 or
+Each wrapper checks its inputs, allocates the outputs and launches on
+PyTorch's current stream. They have no fallback: a CPU, mistyped or
 non-contiguous tensor, a failed build or a refused launch raises.
-`LAUNCHES` counts the launches this process made.
+`LAUNCHES` counts the launches this process made, by kernel.
 """
 
 from __future__ import annotations
@@ -21,80 +25,123 @@ import torch
 
 from torched_impala_tpu_torch.ops import _build
 from torched_impala_tpu_torch.ops._build import check_input
-from torched_impala_tpu_torch.ops.fused_loss import FusedSums
+from torched_impala_tpu_torch.ops.fused_loss import FusedCoreOut
 
-LAUNCHES = 0
+LAUNCHES = {"fwd": 0, "bwd": 0}
+CLUSTER = 8  # blocks of the forward kernel (csrc/fused_loss.cu:kCluster)
+# The forward stages whole logit rows in shared memory: up to 16384
+# floats a cube (csrc/fused_loss.cu:kCubeFloats), so at least one row.
+MAX_ACTIONS = 16384
 
-_ARGTYPES = (
-    [ctypes.c_void_p] * 11
-    + [ctypes.c_int, ctypes.c_int]
-    + [ctypes.c_float] * 4
-    + [ctypes.c_int, ctypes.c_void_p]
-)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "fused_loss_fwd_launch": [_P] * 13 + [_I] * 5 + [_F] * 4 + [_I, _P],
+    "fused_loss_bwd_launch": [_P] * 13 + [ctypes.c_long, _I, _I, _P],
+}
 
 
 def _library() -> ctypes.CDLL:
     lib = _build.load("fused_loss")
-    fn = lib.fused_loss_launch
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-        lib.fused_loss_blocks.argtypes = [ctypes.c_int]
-        lib.fused_loss_blocks.restype = ctypes.c_int
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
 
 
-def fused_sums_cuda(
-    log_pi_a, ent, values, bootstrap, log_rhos, discounts, rewards, mask,
-    *, clip_rho=1.0, clip_c=1.0, clip_pg_rho=1.0, lambda_=1.0,
-) -> FusedSums:
-    """The fused sums on the card. Same contract as `fused_sums_reference`."""
-    global LAUNCHES
-    if log_pi_a.dim() != 2 or min(log_pi_a.shape) < 1:
+def lanes_per_row(A: int) -> int:
+    """Threads that share one row of the forward's logits: the smallest
+    power of two that leaves each at most four of the A entries, at most a
+    warp (beyond 128 actions each lane takes more)."""
+    lanes = 1
+    while lanes < 32 and 4 * lanes < A:
+        lanes *= 2
+    return lanes
+
+
+def tile_width(B: int) -> int:
+    """Columns a tile of the forward: the batch split over the cluster's 8
+    blocks, at most 32 a tile (wider batches take several tiles a
+    block)."""
+    return min(32, -(-B // CLUSTER))
+
+
+def _check_cube(kernel: str, target_logits: torch.Tensor) -> tuple[int, int, int]:
+    if target_logits.dim() != 3 or min(target_logits.shape) < 1:
         raise ValueError(
-            f"fused_sums_cuda: log_pi_a must be a non-empty [T, B], got "
-            f"{tuple(log_pi_a.shape)}"
+            f"{kernel}: target_logits must be a non-empty [T, B, A], got "
+            f"{tuple(target_logits.shape)}"
         )
-    T, B = log_pi_a.shape
-    device = log_pi_a.device
-    tb = {
-        "log_pi_a": log_pi_a,
-        "ent": ent,
-        "values": values,
-        "log_rhos": log_rhos,
-        "discounts": discounts,
-        "rewards": rewards,
-        "mask": mask,
-    }
-    f32 = (torch.float32,)
-    for name, x in tb.items():
-        check_input("fused_sums_cuda", name, x, (T, B), f32, device)
-    check_input("fused_sums_cuda", "bootstrap", bootstrap, (B,), f32, device)
-    # The outputs are targets and loss sums: no gradient flows through
-    # the kernel (the autograd.Function's backward is closed-form).
-    ins = [x.detach() for x in (log_pi_a, ent, values, bootstrap, log_rhos,
-                                discounts, rewards, mask)]
-    lib = _library()
-    vs, adv = (torch.empty((T, B), dtype=torch.float32, device=device) for _ in range(2))
-    partials = torch.empty(
-        (lib.fused_loss_blocks(B), 3), dtype=torch.float32, device=device
-    )
-    rc = lib.fused_loss_launch(
-        *(x.data_ptr() for x in ins),
-        vs.data_ptr(),
-        adv.data_ptr(),
-        partials.data_ptr(),
-        T,
-        B,
-        float(clip_rho),
-        float(clip_c),
-        float(clip_pg_rho),
-        float(lambda_),
-        device.index,
-        torch.cuda.current_stream(device).cuda_stream,
-    )
+    return tuple(target_logits.shape)
+
+
+def _launch(name: str, kernel: str, *args) -> None:
+    rc = getattr(_library(), name)(*args)
     if rc != 0:
-        raise RuntimeError(f"fused_sums_cuda: kernel launch failed with cudaError {rc}")
-    LAUNCHES += 1
-    pg, bl, ent_sum = partials.sum(dim=0)
-    return FusedSums(pg=pg, bl=bl, ent=ent_sum, vs=vs, adv=adv)
+        raise RuntimeError(f"{kernel}: kernel launch failed with cudaError {rc}")
+
+
+def fused_loss_fwd(
+    target_logits, behaviour_logits, actions, values, bootstrap, discounts, rewards, mask,
+    *, clip_rho=1.0, clip_c=1.0, clip_pg_rho=1.0, lambda_=1.0,
+) -> FusedCoreOut:
+    """The fused loss's forward on the card. Same contract as
+    `fused_core_reference`."""
+    T, B, A = _check_cube("fused_loss_fwd", target_logits)
+    if A > MAX_ACTIONS:
+        raise ValueError(f"fused_loss_fwd: {A} actions above the kernel's limit of {MAX_ACTIONS}")
+    device = target_logits.device
+    f32 = (torch.float32,)
+    for name, x in (("target_logits", target_logits), ("behaviour_logits", behaviour_logits)):
+        check_input("fused_loss_fwd", name, x, (T, B, A), f32, device)
+    check_input("fused_loss_fwd", "actions", actions, (T, B), (torch.int64,), device)
+    for name, x in (("values", values), ("discounts", discounts), ("rewards", rewards),
+                    ("mask", mask)):
+        check_input("fused_loss_fwd", name, x, (T, B), f32, device)
+    check_input("fused_loss_fwd", "bootstrap", bootstrap, (B,), f32, device)
+    # The outputs are targets, loss sums and residuals: the Function's
+    # backward is the other kernel.
+    ins = [x.detach() for x in (target_logits, behaviour_logits, actions, values, bootstrap,
+                                discounts, rewards, mask)]
+    vs, adv, lse, ent = (torch.empty((T, B), dtype=torch.float32, device=device)
+                         for _ in range(4))
+    sums = torch.empty((5,), dtype=torch.float32, device=device)
+    _launch(
+        "fused_loss_fwd_launch", "fused_loss_fwd",
+        *(x.data_ptr() for x in (*ins, vs, adv, lse, ent, sums)),
+        T, B, A, tile_width(B), lanes_per_row(A),
+        float(clip_rho), float(clip_c), float(clip_pg_rho), float(lambda_),
+        device.index, torch.cuda.current_stream(device).cuda_stream,
+    )
+    LAUNCHES["fwd"] += 1
+    return FusedCoreOut(sums=sums, vs=vs, adv=adv, lse=lse, ent=ent)
+
+
+def fused_loss_bwd(
+    target_logits, lse, ent, adv, vs, values, mask, actions, g_pg, g_bl, g_ent,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused loss's backward on the card: (dL/dz, dL/dvalues). Same
+    contract as `fused_core_backward_reference`; the three cotangents are
+    0-dim f32 tensors on the card, read there (no host sync)."""
+    T, B, A = _check_cube("fused_loss_bwd", target_logits)
+    device = target_logits.device
+    f32 = (torch.float32,)
+    check_input("fused_loss_bwd", "target_logits", target_logits, (T, B, A), f32, device)
+    for name, x in (("lse", lse), ("ent", ent), ("adv", adv), ("vs", vs), ("values", values),
+                    ("mask", mask)):
+        check_input("fused_loss_bwd", name, x, (T, B), f32, device)
+    check_input("fused_loss_bwd", "actions", actions, (T, B), (torch.int64,), device)
+    for name, g in (("g_pg", g_pg), ("g_bl", g_bl), ("g_ent", g_ent)):
+        check_input("fused_loss_bwd", name, g, (), f32, device)
+    ins = [x.detach() for x in (target_logits, lse, ent, adv, vs, values, mask, actions,
+                                g_pg, g_bl, g_ent)]
+    g_z = torch.empty((T, B, A), dtype=torch.float32, device=device)
+    g_values = torch.empty((T, B), dtype=torch.float32, device=device)
+    _launch(
+        "fused_loss_bwd_launch", "fused_loss_bwd",
+        *(x.data_ptr() for x in (*ins, g_z, g_values)),
+        T * B, A, device.index, torch.cuda.current_stream(device).cuda_stream,
+    )
+    LAUNCHES["bwd"] += 1
+    return g_z, g_values

@@ -38,7 +38,8 @@ class ImpalaLossConfig:
     reduction: str = "sum"
     # V-trace and the loss sums in one kernel (ops/fused_loss.py).
     fused_epilogue: bool = False
-    # Not ported yet (ROADMAP.md queue 1 item 7): True raises, and so does
+    # Not ported yet (ROADMAP.md queue 1, "The learner step's launches,
+    # then the rest of the learner"): True raises, and so does
     # a train_dtype other than float32.
     health_diagnostics: bool = False
     train_dtype: str = "float32"
@@ -146,7 +147,8 @@ def impala_loss(
     """
     if config.health_diagnostics:
         raise NotImplementedError(
-            "health_diagnostics is not ported yet (ROADMAP.md queue 1, item 7)"
+            "health_diagnostics is not ported yet (ROADMAP.md queue 1, "
+            "\"The learner step's launches, then the rest of the learner\")"
         )
     if config.fused_epilogue:
         return fused_vtrace_loss(
@@ -163,7 +165,8 @@ def impala_loss(
     if config.train_dtype != "float32":
         raise NotImplementedError(
             f"train_dtype={config.train_dtype!r} is not ported yet "
-            "(ROADMAP.md queue 1, item 7)"
+            "(ROADMAP.md queue 1, \"The learner step's launches, then the rest "
+            "of the learner\")"
         )
     if mask is None:
         mask = torch.ones_like(rewards)

@@ -15,7 +15,8 @@ buffering). `step_once` takes one batch and one SGD step:
 
 then publishes the params for the actors. The clip
 formula is the JAX learner's exactly; `torch.nn.utils.clip_grad_norm_`
-adds 1e-6 instead and is not used.
+adds 1e-6 instead and is not used. `max_grad_norm=None` skips the clip
+and takes the unclipped step, as the JAX learner does.
 """
 
 from __future__ import annotations
@@ -42,7 +43,8 @@ class LearnerConfig:
     batch_size: int = 8
     unroll_length: int = 20
     loss: ImpalaLossConfig = ImpalaLossConfig()
-    max_grad_norm: float = 40.0  # IMPALA paper's global-norm clip
+    # IMPALA paper's global-norm clip; None takes unclipped steps.
+    max_grad_norm: Optional[float] = 40.0
     # Call the logger every N steps; converting the logs to floats waits
     # for the device, so keep this > 1 for throughput runs.
     log_interval: int = 1
@@ -215,8 +217,9 @@ class Learner:
         names = list(self._params)
         grads = torch.autograd.grad(out.total, [self._params[k] for k in names])
         grad_norm = global_norm(grads)
-        scale = torch.clamp(cfg.max_grad_norm / (grad_norm + 1e-8), max=1.0)
-        grads = [g * scale for g in grads]
+        if cfg.max_grad_norm is not None:
+            scale = torch.clamp(cfg.max_grad_norm / (grad_norm + 1e-8), max=1.0)
+            grads = [g * scale for g in grads]
         self._optimizer.step(self._params, dict(zip(names, grads)))
         logs = {k: v.detach() for k, v in out.logs.items()}
         logs["grad_norm_unclipped"] = grad_norm.detach()
