@@ -39,8 +39,8 @@ non-zero (no phase's failure is caught):
 6. fused_loss: the fused loss's forward kernel against its plain version
    at (T, B, A) = (20, 32, 6), (100, 32, 15), (1, 1, 2), (7, 130, 4) x
    the three threshold sets x lambda, with a mask with zeros (the five
-   sums rtol 1e-5; lse and the entropy <= 1e-5 absolute; vs and the
-   advantages 1e-5 absolute and relative), its backward kernel against its plain version (rtol 1e-5,
+   sums rtol 1e-5; vs, the advantages, lse and the entropy <= 1e-5
+   absolute), its backward kernel against its plain version (rtol 1e-5,
    atol 1e-6 x the largest gradient), two launches of each bit-identical,
    and the whole loss through both kernels (one launch of each a call)
    against the loss through the plain versions, reductions sum and mean
@@ -687,14 +687,11 @@ def phase_fused_loss(device):
     from torched_impala_tpu_torch.ops import fused_loss, fused_loss_cuda, losses, profiling
     from torched_impala_tpu_torch.ops.vtrace import threshold
 
-    # The forward against its plain version: the five sums rtol 1e-5; lse
-    # and the entropy 1e-5 absolute; vs and adv 1e-5 absolute and relative
-    # (the kernel forms its own log-ratios, an ulp from the plain
-    # version's, and unclipped weights carry that ulp into targets of
-    # magnitude ~1e3, where one f32 ulp is above 1e-5). The backward
-    # against its plain version: rtol 1e-5, atol 1e-6 x the largest
-    # gradient. Two launches of each bit-identical.
-    fwd_err, fwd_rel, sums_rel, bwd_err, bwd_rel, per_shape = 0.0, 0.0, 0.0, 0.0, 0.0, {}
+    # The forward against its plain version: the five sums rtol 1e-5; vs,
+    # adv, lse and the entropy 1e-5 absolute. The backward against its
+    # plain version: rtol 1e-5, atol 1e-6 x the largest gradient. Two
+    # launches of each bit-identical.
+    fwd_err, sums_rel, bwd_err, bwd_rel, per_shape = 0.0, 0.0, 0.0, 0.0, {}
     for T, B, A in FUSED_SHAPES:
         args = fused_args(loss_inputs(T, B, A, seed=T * 100 + B, device=device))
         err = 0.0
@@ -716,11 +713,6 @@ def phase_fused_loss(device):
                                                 / ref.sums.abs().clamp(min=1e-6)).max()))
                 for a, b in zip(out[1:], ref[1:]):
                     err = max(err, float((a - b).abs().max()))
-                for a, b in zip(out[1:3], ref[1:3]):
-                    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
-                    fwd_rel = max(fwd_rel, float(((a - b).abs() / b.abs().clamp(min=1e-6)).max()))
-                for a, b in zip(out[3:], ref[3:]):
-                    torch.testing.assert_close(a, b, rtol=0.0, atol=1e-5)
         bwd = fused_bwd_args(args, seed=T + A)
         got = fused_loss_cuda.fused_loss_bwd(*bwd)
         again = fused_loss_cuda.fused_loss_bwd(*bwd)
@@ -735,6 +727,8 @@ def phase_fused_loss(device):
             bwd_rel = max(bwd_rel, float((a - b).abs().max()) / max(scale, 1e-30))
         per_shape[f"{T}x{B}x{A}"] = err
         fwd_err = max(fwd_err, err)
+    if not fwd_err <= 1e-5:
+        raise AssertionError(f"fused_loss_fwd vs plain: vs/adv/lse/ent max abs err {per_shape}")
 
     # The whole loss through the two kernels against the loss through the
     # plain versions, all else identical on the card: logs and gradients.
@@ -810,7 +804,6 @@ def phase_fused_loss(device):
             "phase": "fused_loss",
             "fwd_max_abs_err": fwd_err,
             "fwd_max_abs_err_by_shape": per_shape,
-            "fwd_vs_adv_max_rel_err": fwd_rel,
             "sums_max_rel_err": sums_rel,
             "bwd_max_abs_err": bwd_err,
             "bwd_max_err_over_largest": bwd_rel,

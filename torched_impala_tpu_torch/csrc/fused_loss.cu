@@ -8,7 +8,7 @@
 // VJP). The plain versions are ops/fused_loss.py:fused_core_reference and
 // fused_core_backward_reference.
 //
-// Forward (`fused_loss_fwd_kernel`): one cluster of 8 blocks of 256
+// Forward (`fused_loss_fwd_kernel`): one cluster of 8 blocks of 512
 // threads, one block an SM. Block r takes the column tiles r, r + 8, ...
 // (tiles of `tile` columns, ceil(B / 8) up to 32: 4 at B = 32) and walks
 // each in chunks of 32 steps of T, latest first (vtrace_stage.cuh). For
@@ -18,11 +18,16 @@
 //      shared memory with `cp.async`, all in flight at once (the rows in
 //      batches of up to 16384 floats a cube, whole steps of the tile, 16
 //      bytes a copy where a step's rows are 16-byte aligned, as at the
-//      presets' shapes); then groups of `lanes`
-//      threads take a row (t, b) each, the lanes striding over A: the max,
-//      logsumexp and entropy -sum(p * log p) of the target row, the
-//      logsumexp of the behaviour row, log pi(a), log mu(a) and log rho.
-//      lse and the entropy are written out for the backward;
+//      presets' shapes); then groups of `lanes` threads take a row (t, b)
+//      each, the lanes striding over A: the max, logsumexp and entropy
+//      -sum(p * log p) of the target row, the logsumexp of the behaviour
+//      row, log pi(a), log mu(a) and log rho. lse and the entropy are
+//      written out for the backward. `lanes` is A rounded up to a power of
+//      two, at most 32, and the lanes' partial max and sums are combined
+//      by xor shuffles: the layout and order of torch's own log_softmax
+//      over a short last axis (`softmax_warp_forward`), so log pi(a) and
+//      log mu(a) are the plain version's bits, and the recursion, which
+//      multiplies up to T clipped ratios, has no ulp of theirs to grow;
 //   2. the V-trace recursion, staged as in csrc/vtrace.cu (parallel prep,
 //      the serial chain one thread a column from shared memory, parallel
 //      epilogue);
@@ -63,9 +68,9 @@
 // it (a -inf logit gives NaN there as here), and the backward rounds
 // every multiply and add in the plain version's order. log p is
 // (z - max) - log(sum exp(z - max)), as torch's log_softmax forms it, and
-// lse = max + log(sum exp(z - max)), as torch.logsumexp. Sums of A terms
-// and the loss sums run in another order than torch's; the gates are
-// rtol 1e-5. An action outside [0, A) gives NaN log pi(a) and adds no
+// lse = max + log(sum exp(z - max)), as torch.logsumexp. The entropy's
+// sum of A terms and the loss sums run in another order than torch's;
+// their gates are 1e-5 absolute and rtol 1e-5. An action outside [0, A) gives NaN log pi(a) and adds no
 // coef_pg (torch raises there).
 
 #include <cuda_runtime.h>
@@ -80,7 +85,7 @@
 namespace {
 
 constexpr int kCluster = 8;  // blocks of the forward, one cluster
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 // Floats of each logit cube a block stages at once in dynamic shared
 // memory (64 KB each, 128 KB for the two); at least one row of A <= 16384.

@@ -51,11 +51,15 @@ def _library() -> ctypes.CDLL:
 
 
 def lanes_per_row(A: int) -> int:
-    """Threads that share one row of the forward's logits: the smallest
-    power of two that leaves each at most four of the A entries, at most a
-    warp (beyond 128 actions each lane takes more)."""
+    """Threads that share one row of the forward's logits: A rounded up to
+    a power of two, at most a warp. It is the lane layout of PyTorch's own
+    log_softmax over a short last axis (`softmax_warp_forward`: one entry
+    a lane, more a lane past 32, the lanes' sums added by xor shuffles), so
+    the kernel's max, exp sum and log pi(a) are the plain version's to the
+    bit on the card, and the V-trace recursion does not amplify an ulp of
+    difference in the log-ratios."""
     lanes = 1
-    while lanes < 32 and 4 * lanes < A:
+    while lanes < 32 and lanes < A:
         lanes *= 2
     return lanes
 
