@@ -284,13 +284,13 @@ def test_bf16_cube_phase_is_not_ported():
 
 
 @pytest.mark.parametrize(
-    "A,lanes", [(1, 1), (2, 2), (3, 4), (4, 4), (6, 8), (15, 16), (18, 32), (64, 32),
+    "A,lanes", [(1, 1), (2, 1), (3, 1), (4, 1), (6, 2), (15, 4), (18, 8), (32, 8), (33, 32),
                 (1000, 32)]
 )
 def test_forward_kernel_lanes_per_row(A, lanes):
-    """The forward kernel's lane groups: A rounded up to a power of two, at
-    most a warp (the lane layout of torch's log_softmax over a short last
-    axis)."""
+    """The forward kernel's lane groups: up to 32 logits, A rounded up to a
+    power of two over 4 (four entries a lane of torch's butterfly); past
+    32, a warp."""
     from torched_impala_tpu_torch.ops import fused_loss_cuda
 
     assert fused_loss_cuda.lanes_per_row(A) == lanes

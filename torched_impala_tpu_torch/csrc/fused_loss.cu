@@ -8,7 +8,7 @@
 // VJP). The plain versions are ops/fused_loss.py:fused_core_reference and
 // fused_core_backward_reference.
 //
-// Forward (`fused_loss_fwd_kernel`): one cluster of 8 blocks of 512
+// Forward (`fused_loss_fwd_kernel`): one cluster of 8 blocks of 256
 // threads, one block an SM. Block r takes the column tiles r, r + 8, ...
 // (tiles of `tile` columns, ceil(B / 8) up to 32: 4 at B = 32) and walks
 // each in chunks of 32 steps of T, latest first (vtrace_stage.cuh). For
@@ -22,12 +22,15 @@
 //      each, the lanes striding over A: the max, logsumexp and entropy
 //      -sum(p * log p) of the target row, the logsumexp of the behaviour
 //      row, log pi(a), log mu(a) and log rho. lse and the entropy are
-//      written out for the backward. `lanes` is A rounded up to a power of
-//      two, at most 32, and the lanes' partial max and sums are combined
-//      by xor shuffles: the layout and order of torch's own log_softmax
-//      over a short last axis (`softmax_warp_forward`), so log pi(a) and
-//      log mu(a) are the plain version's bits, and the recursion, which
-//      multiplies up to T clipped ratios, has no ulp of theirs to grow;
+//      written out for the backward. The exp sums are added in the order
+//      of torch's own log_softmax over a short last axis
+//      (`softmax_warp_forward`): an xor butterfly as wide as A rounded up
+//      to a power of two (zeros past A), its widest steps inside a lane
+//      (up to 4 entries a lane, `xor_tree`), the rest by shuffles; past
+//      32 entries each of 32 lanes adds its entries in order first. So
+//      log pi(a) and log mu(a) are the plain version's bits, and the
+//      recursion, which multiplies up to T clipped ratios, has no ulp of
+//      theirs to grow;
 //   2. the V-trace recursion, staged as in csrc/vtrace.cu (parallel prep,
 //      the serial chain one thread a column from shared memory, parallel
 //      epilogue);
@@ -60,8 +63,8 @@
 // forward reads 2 * 15,360 bytes of logits, 5,120 of int64 actions,
 // 4 * 2,560 of [T, B] operands and the bootstrap, and writes 4 * 2,560 and
 // the five sums (56,468 bytes, about 17 ns at 3.35 TB/s); the backward
-// moves 53,772 bytes. Launch latency and, in the forward, the serial
-// chain bound both.
+// moves 53,772 bytes. Launch latency bounds both; in the forward the row
+// phase, the copies and the chain follow.
 //
 // Numerics: as csrc/vtrace.cu for vs and adv (vtrace_stage.cuh); the row
 // phase uses expf and logf, plp is p * log p as the plain version forms
@@ -70,8 +73,8 @@
 // (z - max) - log(sum exp(z - max)), as torch's log_softmax forms it, and
 // lse = max + log(sum exp(z - max)), as torch.logsumexp. The entropy's
 // sum of A terms and the loss sums run in another order than torch's;
-// their gates are 1e-5 absolute and rtol 1e-5. An action outside [0, A) gives NaN log pi(a) and adds no
-// coef_pg (torch raises there).
+// their gates are 1e-5 absolute and rtol 1e-5. An action outside [0, A)
+// gives NaN log pi(a) and adds no coef_pg (torch raises there).
 
 #include <cuda_runtime.h>
 
@@ -85,8 +88,9 @@
 namespace {
 
 constexpr int kCluster = 8;  // blocks of the forward, one cluster
-constexpr int kThreads = 512;
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kPer = 4;  // most logits of a row a lane holds in registers (A <= 32)
 // Floats of each logit cube a block stages at once in dynamic shared
 // memory (64 KB each, 128 KB for the two); at least one row of A <= 16384.
 constexpr int kCubeFloats = 16384;
@@ -104,6 +108,23 @@ __device__ __forceinline__ float group_max(float x, int lanes) {
 __device__ __forceinline__ float group_sum(float x, int lanes) {
   for (int o = lanes / 2; o > 0; o /= 2) x += __shfl_xor_sync(kFull, x, o, lanes);
   return x;
+}
+
+// The steps of a width-(lanes * per) xor butterfly that stay inside one
+// lane, whose entries sit `lanes` apart: offsets 2 * lanes, then lanes.
+__device__ __forceinline__ float xor_tree(const float (&v)[kPer], int per) {
+  if (per == 4) return (v[0] + v[2]) + (v[1] + v[3]);
+  if (per == 2) return v[0] + v[1];
+  return v[0];
+}
+
+// Lanes a row of A logits: A rounded up to a power of two, over 4 when
+// A <= 32 (so 4 entries a lane, 1 at A = 1, 2 at A = 2); 32 past 32.
+__host__ __device__ inline int lanes_for(int A) {
+  if (A > 32) return 32;
+  int width = 1;
+  while (width < A) width *= 2;
+  return width < 4 ? 1 : width / 4;
 }
 
 // 16 bytes from global to shared memory without waiting (both 16-byte
@@ -182,6 +203,11 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
   const int tid = threadIdx.x;
   const int groups = kThreads / lanes;
   const int group = tid / lanes, lane = tid % lanes;
+  // Entries a lane holds (A <= 32), else 0: the butterfly is as wide as A
+  // rounded up to a power of two, as torch's.
+  int width = 1;
+  while (width < A) width *= 2;
+  const int per = A <= 32 ? width / lanes : 0;
   float sum_pg = 0.0f, sum_bl = 0.0f, sum_ent = 0.0f, sum_vs = 0.0f, sum_adv = 0.0f;
   const int chunks = (T + kChunk - 1) / kChunk;
   for (int b0 = static_cast<int>(rank) * tile; b0 < B; b0 += kCluster * tile) {
@@ -241,25 +267,63 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
           const int n = q < nb ? A : 0;  // entries of this group's row
           const float* zr = zs + q * A;
           const float* mr = ms + q * A;
-          float zmax = -INFINITY, mmax = -INFINITY;
-          for (int a = lane; a < n; a += lanes) {
-            zmax = fmaxf(zmax, zr[a]);
-            mmax = fmaxf(mmax, mr[a]);
-          }
-          zmax = group_max(zmax, lanes);
-          mmax = group_max(mmax, lanes);
-          float zsum = 0.0f, msum = 0.0f;
-          for (int a = lane; a < n; a += lanes) {
-            zsum += expf(zr[a] - zmax);
-            msum += expf(mr[a] - mmax);
+          float zmax = -INFINITY, mmax = -INFINITY, zsum, msum;
+          float zv[kPer];
+          if (per > 0) {
+            // A <= 32: entries lane + lanes * k, k < per, in registers.
+            float mv[kPer], ze[kPer], me[kPer];
+#pragma unroll
+            for (int k = 0; k < kPer; ++k) {
+              const int a = lane + lanes * k;
+              const bool in = k < per && a < n;
+              zv[k] = in ? zr[a] : -INFINITY;
+              mv[k] = in ? mr[a] : -INFINITY;
+              zmax = fmaxf(zmax, zv[k]);
+              mmax = fmaxf(mmax, mv[k]);
+            }
+            zmax = group_max(zmax, lanes);
+            mmax = group_max(mmax, lanes);
+#pragma unroll
+            for (int k = 0; k < kPer; ++k) {
+              const bool in = k < per && lane + lanes * k < n;
+              ze[k] = in ? expf(zv[k] - zmax) : 0.0f;
+              me[k] = in ? expf(mv[k] - mmax) : 0.0f;
+            }
+            zsum = xor_tree(ze, per);
+            msum = xor_tree(me, per);
+          } else {
+            // A > 32: 32 lanes, each adding its entries lane + 32 * k in
+            // order, as torch's warp softmax does past 32 entries.
+            for (int a = lane; a < n; a += lanes) {
+              zmax = fmaxf(zmax, zr[a]);
+              mmax = fmaxf(mmax, mr[a]);
+            }
+            zmax = group_max(zmax, lanes);
+            mmax = group_max(mmax, lanes);
+            zsum = 0.0f;
+            msum = 0.0f;
+            for (int a = lane; a < n; a += lanes) {
+              zsum += expf(zr[a] - zmax);
+              msum += expf(mr[a] - mmax);
+            }
           }
           // log p = (z - max) - log(sum), as torch's log_softmax forms it.
           const float zlog = logf(group_sum(zsum, lanes));
           const float mlog = logf(group_sum(msum, lanes));
           float plp = 0.0f;
-          for (int a = lane; a < n; a += lanes) {
-            const float log_p = __fsub_rn(__fsub_rn(zr[a], zmax), zlog);
-            plp = __fadd_rn(plp, __fmul_rn(expf(log_p), log_p));
+          if (per > 0) {
+            float pl[kPer];
+#pragma unroll
+            for (int k = 0; k < kPer; ++k) {
+              const float log_p = __fsub_rn(__fsub_rn(zv[k], zmax), zlog);
+              pl[k] = k < per && lane + lanes * k < n ? __fmul_rn(expf(log_p), log_p) : 0.0f;
+            }
+            plp = xor_tree(pl, per);
+          } else {
+            for (int a = lane; a < n; a += lanes) {
+              const float log_p = __fsub_rn(__fsub_rn(zr[a], zmax), zlog);
+              plp = __fadd_rn(plp, __fmul_rn(expf(log_p), log_p));
+            }
           }
           const float ent = -group_sum(plp, lanes);
           if (lane == 0 && q < nb) {
@@ -374,8 +438,8 @@ __global__ void __launch_bounds__(kBwdThreads) fused_loss_bwd_kernel(
 
 // Each launcher runs on `stream` (PyTorch's current stream) on `device` and
 // returns cudaGetLastError(), so a refused launch is reported to the caller.
-// `lanes` (the threads a row, a power of two up to 32) and `tile` (columns
-// a tile, 1 to 32) come from ops/fused_loss_cuda.py (`lanes_per_row`,
+// `lanes` (the threads a row, `lanes_for(A)`) and `tile` (columns a tile,
+// 1 to 32) come from ops/fused_loss_cuda.py (`lanes_per_row`,
 // `tile_width`); any other value is refused (cudaErrorInvalidValue).
 extern "C" int fused_loss_fwd_launch(
     const float* z, const float* mu, const long long* actions, const float* values,
@@ -385,8 +449,7 @@ extern "C" int fused_loss_fwd_launch(
     int device, void* stream) {
   const int aligned = reinterpret_cast<std::uintptr_t>(z) % 16 == 0 &&
                       reinterpret_cast<std::uintptr_t>(mu) % 16 == 0;
-  if (lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0 || tile < 1 || tile > kCols ||
-      A > kCubeFloats) {
+  if (lanes != lanes_for(A) || tile < 1 || tile > kCols || A > kCubeFloats) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);

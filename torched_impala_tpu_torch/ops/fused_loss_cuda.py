@@ -51,17 +51,21 @@ def _library() -> ctypes.CDLL:
 
 
 def lanes_per_row(A: int) -> int:
-    """Threads that share one row of the forward's logits: A rounded up to
-    a power of two, at most a warp. It is the lane layout of PyTorch's own
-    log_softmax over a short last axis (`softmax_warp_forward`: one entry
-    a lane, more a lane past 32, the lanes' sums added by xor shuffles), so
-    the kernel's max, exp sum and log pi(a) are the plain version's to the
-    bit on the card, and the V-trace recursion does not amplify an ulp of
-    difference in the log-ratios."""
-    lanes = 1
-    while lanes < 32 and lanes < A:
-        lanes *= 2
-    return lanes
+    """Threads that share one row of the forward's logits
+    (csrc/fused_loss.cu:lanes_for): up to 32 logits, A rounded up to a
+    power of two over 4, at least 1, each lane holding 4 entries (fewer at
+    A <= 2); past 32 logits a warp. The kernel adds the exp sums in the
+    order of PyTorch's own log_softmax over a short last axis
+    (`softmax_warp_forward`, an xor butterfly as wide as A rounded up to a
+    power of two), its widest steps inside a lane: the kernel's log pi(a)
+    is the plain version's to the bit on the card, and the V-trace
+    recursion does not amplify an ulp of difference in the log-ratios."""
+    if A > 32:
+        return 32
+    width = 1
+    while width < A:
+        width *= 2
+    return max(1, width // 4)
 
 
 def tile_width(B: int) -> int:
