@@ -521,14 +521,6 @@ def _fused_args(T, B, A, seed, device):
                                 "bootstrap_value", "discounts", "rewards", "mask"))
 
 
-def _fused_kw(clips, lambda_=1.0):
-    from torched_impala_tpu_torch.ops.vtrace import threshold
-
-    kw = {k: threshold(THRESHOLDS[clips].get(f"{k}_threshold", 1.0))
-          for k in ("clip_rho", "clip_c", "clip_pg_rho")}
-    return dict(kw, lambda_=lambda_)
-
-
 def _fused_bwd_args(args, seed, kw=None):
     """The backward's operands after the plain forward of `args`: logits,
     lse, entropy, adv, vs, values, mask, actions and three cotangents."""
@@ -572,10 +564,13 @@ def test_fused_loss_kernel_matches_reference(cuda, T, B, A, clips):
     rtol 1e-5; vs and adv 1e-5 absolute and relative, as the first
     kernel's were; lse and the entropy 1e-5 absolute."""
     from torched_impala_tpu_torch.ops import fused_loss, fused_loss_cuda
+    from torched_impala_tpu_torch.ops.vtrace import threshold
 
     args = _fused_args(T, B, A, seed=T + B, device=cuda)
     for lambda_ in (1.0, 0.9):
-        kw = _fused_kw(clips, lambda_)
+        kw = {k: threshold(THRESHOLDS[clips].get(f"{k}_threshold", 1.0))
+              for k in ("clip_rho", "clip_c", "clip_pg_rho")}
+        kw["lambda_"] = lambda_
         before = dict(fused_loss_cuda.LAUNCHES)
         out = fused_loss_cuda.fused_loss_fwd(*args, **kw)
         assert fused_loss_cuda.LAUNCHES == dict(before, fwd=before["fwd"] + 1)

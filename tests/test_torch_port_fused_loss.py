@@ -282,30 +282,3 @@ def test_bf16_cube_phase_is_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_losses.impala_loss(**t, config=cfg)
 
-
-@pytest.mark.parametrize(
-    "A,lanes", [(1, 1), (2, 1), (3, 1), (4, 1), (6, 2), (15, 4), (18, 8), (32, 8), (33, 32),
-                (1000, 32)]
-)
-def test_forward_kernel_lanes_per_row(A, lanes):
-    """The forward kernel's lane groups: up to 32 logits, A rounded up to a
-    power of two over 4 (four entries a lane of torch's butterfly); past
-    32, a warp."""
-    from torched_impala_tpu_torch.ops import fused_loss_cuda
-
-    assert fused_loss_cuda.lanes_per_row(A) == lanes
-
-
-@pytest.mark.parametrize("B,tile", [(1, 1), (8, 1), (9, 2), (32, 4), (64, 8), (130, 17),
-                                    (256, 32), (1000, 32)])
-def test_forward_kernel_tile_width(B, tile):
-    """The forward kernel's column tiles: B over the cluster's 8 blocks, at
-    most 32 columns a tile, every column in some block's tiles."""
-    from torched_impala_tpu_torch.ops import fused_loss_cuda
-
-    assert fused_loss_cuda.tile_width(B) == tile
-    cluster = fused_loss_cuda.CLUSTER
-    covered = sorted(b for rank in range(cluster)
-                     for b0 in range(rank * tile, B, cluster * tile)
-                     for b in range(b0, min(b0 + tile, B)))
-    assert covered == list(range(B))

@@ -10,7 +10,8 @@
 //
 // Forward (`fused_loss_fwd_kernel`): one cluster of 8 blocks of 256
 // threads, one block an SM. Block r takes the column tiles r, r + 8, ...
-// (tiles of `tile` columns, ceil(B / 8) up to 32: 4 at B = 32) and walks
+// (tiles of `tile` columns, ceil(B / 8) up to 32: 4 at B = 32, set by the
+// launcher) and walks
 // each in chunks of 32 steps of T, latest first (vtrace_stage.cuh). For
 // each chunk:
 //   1. all threads copy the chunk's [T, B] operands (values, discounts,
@@ -119,7 +120,9 @@ __device__ __forceinline__ float xor_tree(const float (&v)[kPer], int per) {
 }
 
 // Lanes a row of A logits: A rounded up to a power of two, over 4 when
-// A <= 32 (so 4 entries a lane, 1 at A = 1, 2 at A = 2); 32 past 32.
+// A <= 32 (so 4 entries a lane, 1 at A = 1, 2 at A = 2); 32 past 32. Four
+// entries a lane keep the butterfly's order (`xor_tree`) with fewer, busier
+// lanes than torch's one a lane.
 __host__ __device__ inline int lanes_for(int A) {
   if (A > 32) return 32;
   int width = 1;
@@ -224,14 +227,14 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
     for (int k = 0; k < chunks; ++k) {
       const vt::Chunk c(T, k);
       const int rows = c.len * cols;
-      if (k == 0 && tid < cols) vt::cp_async4(&v_after[0][tid], bootstrap + b0 + tid, true);
+      if (k == 0 && tid < cols) vt::cp_async4(&v_after[0][tid], bootstrap + b0 + tid);
       for (int i = tid; i < rows; i += kThreads) {
         const int tl = i / cols, j = i % cols;
         const long g = static_cast<long>(c.t0 + tl) * B + b0 + j;
-        vt::cp_async4(&s.v[tl][j], values + g, true);
-        vt::cp_async4(&s.d[tl][j], discounts + g, true);
-        vt::cp_async4(&s.r[tl][j], rewards + g, true);
-        vt::cp_async4(&s.m[tl][j], mask + g, true);
+        vt::cp_async4(&s.v[tl][j], values + g);
+        vt::cp_async4(&s.d[tl][j], discounts + g);
+        vt::cp_async4(&s.r[tl][j], rewards + g);
+        vt::cp_async4(&s.m[tl][j], mask + g);
         cp_async8(&s.act[tl][j], actions + g);
       }
 
@@ -253,8 +256,8 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
           for (int e = tid; e < nb * A; e += kThreads) {
             const int i = r0 + e / A, a = e % A;
             const long g = (static_cast<long>(c.t0 + i / cols) * B + b0 + i % cols) * A + a;
-            vt::cp_async4(zs + e, z + g, true);
-            vt::cp_async4(ms + e, mu + g, true);
+            vt::cp_async4(zs + e, z + g);
+            vt::cp_async4(ms + e, mu + g);
           }
         }
         vt::cp_async_commit();
@@ -438,27 +441,28 @@ __global__ void __launch_bounds__(kBwdThreads) fused_loss_bwd_kernel(
 
 // Each launcher runs on `stream` (PyTorch's current stream) on `device` and
 // returns cudaGetLastError(), so a refused launch is reported to the caller.
-// `lanes` (the threads a row, `lanes_for(A)`) and `tile` (columns a tile,
-// 1 to 32) come from ops/fused_loss_cuda.py (`lanes_per_row`,
-// `tile_width`); any other value is refused (cudaErrorInvalidValue).
+// The forward refuses A above kCubeFloats (cudaErrorInvalidValue): a row
+// must fit the staged logits.
 extern "C" int fused_loss_fwd_launch(
     const float* z, const float* mu, const long long* actions, const float* values,
     const float* bootstrap, const float* discounts, const float* rewards, const float* mask,
     float* vs_out, float* adv_out, float* lse_out, float* ent_out, float* sums_out, int T, int B,
-    int A, int tile, int lanes, float clip_rho, float clip_c, float clip_pg_rho, float lambda_,
-    int device, void* stream) {
+    int A, float clip_rho, float clip_c, float clip_pg_rho, float lambda_, int device,
+    void* stream) {
+  if (A > kCubeFloats) return static_cast<int>(cudaErrorInvalidValue);
+  // Columns a tile: the batch split over the cluster's blocks, at most
+  // kCols (wider batches take several tiles a block).
+  const int tile = std::min(kCols, (B + kCluster - 1) / kCluster);
   const int aligned = reinterpret_cast<std::uintptr_t>(z) % 16 == 0 &&
                       reinterpret_cast<std::uintptr_t>(mu) % 16 == 0;
-  if (lanes != lanes_for(A) || tile < 1 || tile > kCols || A > kCubeFloats) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = set_smem_ceiling_once<fused_loss_fwd_kernel>(device, kDynSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   fused_loss_fwd_kernel<<<kCluster, kThreads, kDynSmem, static_cast<cudaStream_t>(stream)>>>(
       z, mu, actions, values, bootstrap, discounts, rewards, mask, vs_out, adv_out, lse_out,
-      ent_out, sums_out, T, B, A, tile, lanes, aligned, clip_rho, clip_c, clip_pg_rho, lambda_);
+      ent_out, sums_out, T, B, A, tile, lanes_for(A), aligned, clip_rho, clip_c, clip_pg_rho,
+      lambda_);
   return static_cast<int>(cudaGetLastError());
 }
 

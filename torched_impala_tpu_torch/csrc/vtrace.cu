@@ -54,10 +54,10 @@ __device__ __forceinline__ void load_chunk(Inputs& in, const float* log_rhos,
   for (int i = threadIdx.x; i < c.len * cols; i += blockDim.x) {
     const int tl = i / cols, j = i % cols;
     const long g = static_cast<long>(c.t0 + tl) * B + b0 + j;
-    vt::cp_async4(&in.lr[tl][j], log_rhos + g, true);
-    vt::cp_async4(&in.d[tl][j], discounts + g, true);
-    vt::cp_async4(&in.r[tl][j], rewards + g, true);
-    vt::cp_async4(&in.v[tl][j], values + g, true);
+    vt::cp_async4(&in.lr[tl][j], log_rhos + g);
+    vt::cp_async4(&in.d[tl][j], discounts + g);
+    vt::cp_async4(&in.r[tl][j], rewards + g);
+    vt::cp_async4(&in.v[tl][j], values + g);
   }
   vt::cp_async_commit();
 }
@@ -78,7 +78,7 @@ __global__ void __launch_bounds__(kThreads) vtrace_kernel(
   const int cols = min(kCols, B - b0);
   // The bootstrap goes with the first chunk's copies: no thread waits on
   // a load before it issues its share of them.
-  if (tid < cols) vt::cp_async4(&v_after[0][tid], bootstrap + b0 + tid, true);
+  if (tid < cols) vt::cp_async4(&v_after[0][tid], bootstrap + b0 + tid);
   const int chunks = (T + kChunk - 1) / kChunk;
   load_chunk(in[0], log_rhos, discounts, rewards, values, vt::Chunk(T, 0), b0, cols, B);
   float acc = 0.0f;

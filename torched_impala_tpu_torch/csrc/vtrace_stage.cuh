@@ -38,13 +38,10 @@ __device__ __forceinline__ float clip_to(float clip, float rho) {
   return rho > clip ? clip : rho;
 }
 
-// One float from global to shared memory without waiting; zero-filled
-// (nothing read) where `valid` is false.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+// One float from global to shared memory without waiting.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
-               "r"(valid ? 4 : 0)
-               : "memory");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {

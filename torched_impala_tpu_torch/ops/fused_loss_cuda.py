@@ -28,14 +28,10 @@ from torched_impala_tpu_torch.ops._build import check_input
 from torched_impala_tpu_torch.ops.fused_loss import FusedCoreOut
 
 LAUNCHES = {"fwd": 0, "bwd": 0}
-CLUSTER = 8  # blocks of the forward kernel (csrc/fused_loss.cu:kCluster)
-# The forward stages whole logit rows in shared memory: up to 16384
-# floats a cube (csrc/fused_loss.cu:kCubeFloats), so at least one row.
-MAX_ACTIONS = 16384
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "fused_loss_fwd_launch": [_P] * 13 + [_I] * 5 + [_F] * 4 + [_I, _P],
+    "fused_loss_fwd_launch": [_P] * 13 + [_I] * 3 + [_F] * 4 + [_I, _P],
     "fused_loss_bwd_launch": [_P] * 13 + [ctypes.c_long, _I, _I, _P],
 }
 
@@ -48,31 +44,6 @@ def _library() -> ctypes.CDLL:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
     return lib
-
-
-def lanes_per_row(A: int) -> int:
-    """Threads that share one row of the forward's logits
-    (csrc/fused_loss.cu:lanes_for): up to 32 logits, A rounded up to a
-    power of two over 4, at least 1, each lane holding 4 entries (fewer at
-    A <= 2); past 32 logits a warp. The kernel adds the exp sums in the
-    order of PyTorch's own log_softmax over a short last axis
-    (`softmax_warp_forward`, an xor butterfly as wide as A rounded up to a
-    power of two), its widest steps inside a lane: the kernel's log pi(a)
-    is the plain version's to the bit on the card, and the V-trace
-    recursion does not amplify an ulp of difference in the log-ratios."""
-    if A > 32:
-        return 32
-    width = 1
-    while width < A:
-        width *= 2
-    return max(1, width // 4)
-
-
-def tile_width(B: int) -> int:
-    """Columns a tile of the forward: the batch split over the cluster's 8
-    blocks, at most 32 a tile (wider batches take several tiles a
-    block)."""
-    return min(32, -(-B // CLUSTER))
 
 
 def _check_cube(kernel: str, target_logits: torch.Tensor) -> tuple[int, int, int]:
@@ -97,8 +68,6 @@ def fused_loss_fwd(
     """The fused loss's forward on the card. Same contract as
     `fused_core_reference`."""
     T, B, A = _check_cube("fused_loss_fwd", target_logits)
-    if A > MAX_ACTIONS:
-        raise ValueError(f"fused_loss_fwd: {A} actions above the kernel's limit of {MAX_ACTIONS}")
     device = target_logits.device
     f32 = (torch.float32,)
     for name, x in (("target_logits", target_logits), ("behaviour_logits", behaviour_logits)):
@@ -118,7 +87,7 @@ def fused_loss_fwd(
     _launch(
         "fused_loss_fwd_launch", "fused_loss_fwd",
         *(x.data_ptr() for x in (*ins, vs, adv, lse, ent, sums)),
-        T, B, A, tile_width(B), lanes_per_row(A),
+        T, B, A,
         float(clip_rho), float(clip_c), float(clip_pg_rho), float(lambda_),
         device.index, torch.cuda.current_stream(device).cuda_stream,
     )
