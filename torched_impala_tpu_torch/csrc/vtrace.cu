@@ -19,7 +19,7 @@
 //
 // Why staged: the first port (one thread per column walking T with its
 // own global loads) paid one memory latency a step, T in all; here the
-// loads of a chunk are issued together and the serial part reads shared
+// loads of a chunk are started together and the serial part reads shared
 // memory only.
 //
 // Bound: at the Pong shape (T = 20, B = 32) the kernel reads
@@ -77,7 +77,7 @@ __global__ void __launch_bounds__(kThreads) vtrace_kernel(
   const int b0 = blockIdx.x * kCols;
   const int cols = min(kCols, B - b0);
   // The bootstrap goes with the first chunk's copies: no thread waits on
-  // a load before it issues its share of them.
+  // a load before it starts its share of them.
   if (tid < cols) vt::cp_async4(&v_after[0][tid], bootstrap + b0 + tid);
   const int chunks = (T + kChunk - 1) / kChunk;
   load_chunk(in[0], log_rhos, discounts, rewards, values, vt::Chunk(T, 0), b0, cols, B);
