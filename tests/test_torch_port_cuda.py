@@ -491,6 +491,9 @@ def test_new_wrappers_refuse_bad_inputs_on_cuda(cuda):
 
 
 FUSED_SHAPES = [(20, 32, 6), (100, 32, 15), (1, 1, 2), (7, 130, 4)]
+# The kernels' own tests add 18 and 100 actions, and a batch that the
+# forward splits over 16 clusters (B = 70 and 130 take 2 and 3).
+FUSED_KERNEL_SHAPES = FUSED_SHAPES + [(20, 32, 18), (3, 70, 100), (20, 1024, 18)]
 ATTN_SHAPES = [(32, 21, 4, 64, 128), (2, 300, 4, 64, 128), (3, 1, 2, 16, 0), (5, 40, 3, 32, 19)]
 
 
@@ -558,7 +561,7 @@ def _attn_inputs(B, T, H, dh, W, seed, device, dtype=torch.float32):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("clips", sorted(THRESHOLDS))
-@pytest.mark.parametrize("T,B,A", FUSED_SHAPES + [(20, 32, 18), (3, 70, 100)])
+@pytest.mark.parametrize("T,B,A", FUSED_KERNEL_SHAPES)
 def test_fused_loss_kernel_matches_reference(cuda, T, B, A, clips):
     """The forward kernel against `fused_core_reference`: the five sums
     rtol 1e-5; vs and adv 1e-5 absolute and relative, as the first
@@ -584,7 +587,7 @@ def test_fused_loss_kernel_matches_reference(cuda, T, B, A, clips):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("T,B,A", FUSED_SHAPES + [(20, 32, 18), (3, 70, 100)])
+@pytest.mark.parametrize("T,B,A", FUSED_KERNEL_SHAPES)
 def test_fused_loss_backward_kernel_matches_reference(cuda, T, B, A):
     """The backward kernel against `fused_core_backward_reference` on the
     plain forward's residuals, any cotangents: rtol 1e-5, atol 1e-6 x the
@@ -625,10 +628,11 @@ def test_fused_loss_kernels_pass_non_finite_rows_through(cuda):
 @pytest.mark.gpu
 def test_fused_loss_kernels_bit_identical_over_launches(cuda):
     """Two launches of each kernel on the same inputs give the same bits,
-    with one column tile and with three (the sums in a fixed order)."""
+    with one cluster of the forward, two and sixteen (the sums in a fixed
+    order)."""
     from torched_impala_tpu_torch.ops import fused_loss_cuda
 
-    for shape in ((20, 32, 6), (100, 70, 15)):
+    for shape in ((20, 32, 6), (100, 70, 15), (20, 1024, 18)):
         args = _fused_args(*shape, seed=1, device=cuda)
         runs = [fused_loss_cuda.fused_loss_fwd(*args) for _ in range(2)]
         bwd = _fused_bwd_args(args, seed=2)

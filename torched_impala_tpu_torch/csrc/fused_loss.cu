@@ -8,12 +8,13 @@
 // VJP). The plain versions are ops/fused_loss.py:fused_core_reference and
 // fused_core_backward_reference.
 //
-// Forward (`fused_loss_fwd_kernel`): one cluster of 8 blocks of 256
-// threads, one block an SM. Block r takes the column tiles r, r + 8, ...
-// (tiles of `tile` columns, ceil(B / 8) up to 32: 4 at B = 32, set by the
-// launcher) and walks
-// each in chunks of 32 steps of T, latest first (vtrace_stage.cuh). For
-// each chunk:
+// Forward (`fused_loss_fwd_kernel`): clusters of 8 blocks of 256 threads,
+// one block an SM. Block g takes the column tile g (tiles of `tile`
+// columns, `fwd_tile`: up to B = 64 the batch split over one cluster, 4
+// columns at the presets' B = 32; past it 8 to 32 columns, about 128
+// blocks' worth, in as many clusters as that takes) and walks it in
+// chunks of 32 steps of T, latest first (vtrace_stage.cuh). For each
+// chunk:
 //   1. all threads copy the chunk's [T, B] operands (values, discounts,
 //      rewards, mask, int64 actions) and both logit cubes' rows into
 //      shared memory with `cp.async`, all in flight at once (the rows in
@@ -39,18 +40,24 @@
 //      masked terms -adv * log pi(a) * m, (vs - V)^2 * m, -H * m and vs,
 //      adv to five registers.
 // Each block adds the five in a fixed tree (warp shuffles, then the warps
-// in order) and writes them into block 0's shared memory (distributed
-// shared memory); after one cluster barrier block 0 adds the blocks' in
-// rank order and writes pg, 0.5 * bl, ent and the means of vs and adv.
-// No float atomics and no counter to reset: two launches on the same
-// inputs are bit-identical. The logits' dynamic shared memory (128 KB) is
+// in order) and writes them into its cluster's block 0's shared memory
+// (distributed shared memory); after one cluster barrier block 0 adds the
+// blocks' in rank order. With one cluster it writes pg, 0.5 * bl, ent and
+// the means of vs and adv; with more, each cluster's five go to a scratch
+// row and `fused_loss_fold_kernel` (one warp, launched next on the same
+// stream) adds the rows in cluster order and writes them. No float
+// atomics and no counter to reset: two launches on the same inputs are
+// bit-identical. The logits' dynamic shared memory (128 KB) is
 // the kernel's own fixed size, its ceiling set once per device
 // (smem_ceiling.cuh).
 //
 // Why this shape: a first version in one block read each row's logits
 // from global memory four rows a lane group at a time; its rows phase
 // took most of its time on one SM. Spread over 8 SMs and staged through
-// shared memory, the rows cost one round trip to memory a chunk.
+// shared memory, the rows cost one round trip to memory a chunk. One
+// cluster for every B was slower than the eager ops it replaced at
+// B = 1024 (each block walked four 32-column tiles in turn), so wider
+// batches take more clusters, and the presets' B <= 64 keep one launch.
 //
 // Backward (`fused_loss_bwd_kernel`): one thread an element of the
 // [T, B, A] cube, coalesced: p = exp(z - lse), plp = p * log p, and
@@ -88,7 +95,9 @@
 
 namespace {
 
-constexpr int kCluster = 8;  // blocks of the forward, one cluster
+constexpr int kCluster = 8;  // blocks of a forward cluster
+constexpr int kWideTile = 8;      // least columns a tile past one cluster
+constexpr int kWideBlocks = 128;  // blocks a batch past kWideTile * kWideBlocks takes
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kPer = 4;  // most logits of a row a lane holds in registers (A <= 32)
@@ -128,6 +137,21 @@ __host__ __device__ inline int lanes_for(int A) {
   int width = 1;
   while (width < A) width *= 2;
   return width < 4 ? 1 : width / 4;
+}
+
+// Columns a tile of the forward: up to B = 64 the batch split over one
+// cluster's blocks (ceil(B / 8) <= 8); past it, B / kWideBlocks rounded up,
+// between kWideTile and kCols. So one cluster serves B <= 64, and past it
+// there are at most ceil(B / 64) clusters.
+inline int fwd_tile(int B) {
+  return std::max(std::min((B + kCluster - 1) / kCluster, kWideTile),
+                  std::min((B + kWideBlocks - 1) / kWideBlocks, kCols));
+}
+
+// pg, 0.5 * bl, ent and the means of vs and adv from the five sums.
+__device__ __forceinline__ float finish(float total, int q, int T, int B) {
+  const float n = static_cast<float>(T) * static_cast<float>(B);
+  return q == 1 ? __fmul_rn(0.5f, total) : q >= 3 ? __fdiv_rn(total, n) : total;
 }
 
 // 16 bytes from global to shared memory without waiting (both 16-byte
@@ -181,8 +205,9 @@ struct Stage {
   long long act[kChunk][kCols];
 };
 
-// Block `rank` of the cluster takes the column tiles rank, rank + 8, ...
-// of `tile` columns each (the last one ragged).
+// Block g of the grid takes the column tiles g, g + gridDim.x, ... of
+// `tile` columns each (the last one ragged); the launcher's grid has a
+// block for each tile.
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
     fused_loss_fwd_kernel(const float* __restrict__ z, const float* __restrict__ mu,
                           const long long* __restrict__ actions,
@@ -190,7 +215,8 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
                           const float* __restrict__ discounts, const float* __restrict__ rewards,
                           const float* __restrict__ mask, float* __restrict__ vs_out,
                           float* __restrict__ adv_out, float* __restrict__ lse_out,
-                          float* __restrict__ ent_out, float* __restrict__ sums_out, int T, int B,
+                          float* __restrict__ ent_out, float* __restrict__ sums_out,
+                          float* __restrict__ partials, int T, int B,
                           int A, int tile, int lanes, int aligned, float clip_rho,
                           float clip_c, float clip_pg_rho, float lambda_) {
   extern __shared__ float cubes[];  // [kCubeFloats] target rows, then behaviour rows
@@ -199,8 +225,9 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
   __shared__ Stage s;
   __shared__ float v_after[2][kCols], vs_after[2][kCols];
   __shared__ float red[5][kWarps];
-  __shared__ float part[kCluster][5];  // block 0's: each block's five sums
-  // Every block has started before any writes to block 0's shared memory.
+  __shared__ float part[kCluster][5];  // the cluster's block 0's: each block's five sums
+  // Every block of the cluster has started before any writes to its
+  // block 0's shared memory.
   cluster_arrive_relaxed();
   const unsigned rank = cluster_rank();
   const int tid = threadIdx.x;
@@ -213,7 +240,8 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
   const int per = A <= 32 ? width / lanes : 0;
   float sum_pg = 0.0f, sum_bl = 0.0f, sum_ent = 0.0f, sum_vs = 0.0f, sum_adv = 0.0f;
   const int chunks = (T + kChunk - 1) / kChunk;
-  for (int b0 = static_cast<int>(rank) * tile; b0 < B; b0 += kCluster * tile) {
+  for (int b0 = static_cast<int>(blockIdx.x) * tile; b0 < B;
+       b0 += static_cast<int>(gridDim.x) * tile) {
     const int cols = min(tile, B - b0);
     // Rows of logits staged at once: whole steps of the tile where a step's
     // cols * A floats fit, so that the rows of a step are one contiguous
@@ -384,9 +412,10 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
   }
 
   // The five sums in a fixed order: each warp's tree, the warps in order,
-  // then block 0 adds the blocks' in rank order. Each block writes its five
-  // into block 0's shared memory; the cluster barrier orders the writes
-  // before block 0 reads them.
+  // then the cluster's block 0 adds the blocks' in rank order (and the fold
+  // kernel the clusters' in cluster order). Each block writes its five into
+  // block 0's shared memory; the cluster barrier orders the writes before
+  // block 0 reads them.
   float sums[5] = {sum_pg, sum_bl, sum_ent, sum_vs, sum_adv};
 #pragma unroll
   for (int q = 0; q < 5; ++q) {
@@ -405,9 +434,22 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
   if (rank == 0 && tid < 5) {
     float total = 0.0f;
     for (int r = 0; r < kCluster; ++r) total = __fadd_rn(total, part[r][tid]);
-    const float n = static_cast<float>(T) * static_cast<float>(B);
-    sums_out[tid] = tid == 1 ? __fmul_rn(0.5f, total) : tid >= 3 ? __fdiv_rn(total, n) : total;
+    if (gridDim.x == kCluster) {
+      sums_out[tid] = finish(total, tid, T, B);
+    } else {
+      partials[(blockIdx.x / kCluster) * 5 + tid] = total;
+    }
   }
+}
+
+// The clusters' five sums (rows of `partials`) added in cluster order.
+__global__ void fused_loss_fold_kernel(const float* __restrict__ partials, int clusters, int T,
+                                       int B, float* __restrict__ sums_out) {
+  const int q = threadIdx.x;
+  if (q >= 5) return;
+  float total = 0.0f;
+  for (int c = 0; c < clusters; ++c) total = __fadd_rn(total, partials[c * 5 + q]);
+  sums_out[q] = finish(total, q, T, B);
 }
 
 __global__ void __launch_bounds__(kBwdThreads) fused_loss_bwd_kernel(
@@ -442,27 +484,32 @@ __global__ void __launch_bounds__(kBwdThreads) fused_loss_bwd_kernel(
 // Each launcher runs on `stream` (PyTorch's current stream) on `device` and
 // returns cudaGetLastError(), so a refused launch is reported to the caller.
 // The forward refuses A above kCubeFloats (cudaErrorInvalidValue): a row
-// must fit the staged logits.
+// must fit the staged logits. `partials` is scratch of 5 * ceil(B / 64)
+// floats, read only where B takes more than one cluster (B > 64); the fold
+// kernel then follows the forward on `stream`.
 extern "C" int fused_loss_fwd_launch(
     const float* z, const float* mu, const long long* actions, const float* values,
     const float* bootstrap, const float* discounts, const float* rewards, const float* mask,
-    float* vs_out, float* adv_out, float* lse_out, float* ent_out, float* sums_out, int T, int B,
-    int A, float clip_rho, float clip_c, float clip_pg_rho, float lambda_, int device,
-    void* stream) {
+    float* vs_out, float* adv_out, float* lse_out, float* ent_out, float* sums_out,
+    float* partials, int T, int B, int A, float clip_rho, float clip_c, float clip_pg_rho,
+    float lambda_, int device, void* stream) {
   if (A > kCubeFloats) return static_cast<int>(cudaErrorInvalidValue);
-  // Columns a tile: the batch split over the cluster's blocks, at most
-  // kCols (wider batches take several tiles a block).
-  const int tile = std::min(kCols, (B + kCluster - 1) / kCluster);
+  const int tile = fwd_tile(B);
+  const int clusters = ((B + tile - 1) / tile + kCluster - 1) / kCluster;
   const int aligned = reinterpret_cast<std::uintptr_t>(z) % 16 == 0 &&
                       reinterpret_cast<std::uintptr_t>(mu) % 16 == 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = set_smem_ceiling_once<fused_loss_fwd_kernel>(device, kDynSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_loss_fwd_kernel<<<kCluster, kThreads, kDynSmem, static_cast<cudaStream_t>(stream)>>>(
+  const auto s = static_cast<cudaStream_t>(stream);
+  fused_loss_fwd_kernel<<<kCluster * clusters, kThreads, kDynSmem, s>>>(
       z, mu, actions, values, bootstrap, discounts, rewards, mask, vs_out, adv_out, lse_out,
-      ent_out, sums_out, T, B, A, tile, lanes_for(A), aligned, clip_rho, clip_c, clip_pg_rho,
-      lambda_);
+      ent_out, sums_out, partials, T, B, A, tile, lanes_for(A), aligned, clip_rho, clip_c,
+      clip_pg_rho, lambda_);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || clusters == 1) return static_cast<int>(err);
+  fused_loss_fold_kernel<<<1, 32, 0, s>>>(partials, clusters, T, B, sums_out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,37 +1,53 @@
-"""Time this checkout's LSTM-cell and attention kernels against the same
-kernels built from another source tree, in turns on one card.
+"""Time another checkout of the port against this one on one card, in turns.
 
-    python -m torched_impala_tpu_torch.ops.compare_builds BASE_CSRC
+    python -m torched_impala_tpu_torch.ops.compare_builds BASE_ROOT
 
-BASE_CSRC is another tree's `torched_impala_tpu_torch/csrc` (for example
-a parent commit's, unpacked with `git archive <rev>
-torched_impala_tpu_torch/csrc | tar -x -C DIR`). Both trees are built by
-`_build.build_all`, each under the hash of its own sources. Each workload
-is timed by the profiler's device time (mean of 100 calls) in the order
-base, this, this, base, so that both builds see the same card and clocks:
-the LSTM cell at the Breakout learner's (B, F, H) = (32, 256, 256) and
-its actors' (8, 256, 256); the attention forward kernel; and one attention
-backward call with every kernel inside it summed, at the pong_transformer
-learner's (B, T, H, dh, W) = (32, 21, 4, 64, 128) and at a long unroll
-(2, 1024, 4, 64, 128), f32, every slot of the same episode; and the
-forward again at the learner's shape on ragged episodes (resets
-mid-unroll, a cache partly of an older episode or empty), where masked
-fragments are skipped. A tree whose library exports
-`attention_fwd_plan_launch` runs the forward at `fwd_tiles`' plan; an
-older tree's `attention_fwd_launch` takes no plan. A tree whose library
-exports `attention_bwd_launch` makes one backward call through it; an
-older tree's call is D = `attention.row_term(o, dO)` in PyTorch, then its
-`attention_dq_launch` and `attention_dkv_launch`. Then this tree's
-forward alone at each tile plan of FWD_PLANS and its backward alone at
-each plan of BWD_PLANS, twice each (the plans in order, then reversed).
-Prints one JSON line with the card's name and power limit. Without a
-CUDA card it exits 2 and prints no result.
+BASE_ROOT is the root of another checkout (for example a parent commit
+unpacked with `git archive <rev> | tar -x -C DIR`); a variant of a kernel
+is timed the same way, from a copy of this checkout with its `csrc/`
+changed. Each tree's `measure()` runs in a process of its own, with that
+tree's root first on `sys.path`, in the order base, this, this, base, so
+that both see the same card and clocks; each builds its own kernels. A
+process measures through the wrappers and entry points, so the base tree
+must have the same ones (profiler device time, `ops/profiling.py`, mean of
+100 calls unless said):
+
+- the LSTM cell (`lstm_cuda.lstm_cell_cuda`) at the Breakout learner's
+  (B, F, H) = (32, 256, 256) and its actors' (8, 256, 256);
+- the attention forward kernel (`attention_cuda.attention_forward_cuda`)
+  and one backward call (`attention_backward_cuda`, every kernel in it
+  summed) at the pong_transformer learner's (B, T, H, dh, W) =
+  (32, 21, 4, 64, 128) and at a long unroll (2, 1024, 4, 64, 128), f32,
+  every slot of the same episode; and the forward again at the learner's
+  shape on ragged episodes (resets mid-unroll, a cache partly of an older
+  episode or empty), where masked fragments are skipped;
+- V-trace (`vtrace_cuda.vtrace_cuda`) at B = 32 for T = 20, 100 and 1000;
+- one fused-loss call and its backward (`losses.impala_loss` with
+  `fused_epilogue`, then `torch.autograd.grad`) at each (T, B, A) of
+  LOSS_SHAPES: device µs with every kernel summed, kernels a call, the
+  fused-loss kernels' own device µs, and events ms;
+- the pong_transformer learner's `Learner.train_step` on a fixed batch
+  (the preset with `fused_epilogue=True` and the attention kernels), 10
+  steps: device-busy ms, kernels a step and the device µs of each kernel
+  by name (`profiling.device_us_by_kernel`).
+
+Then, in this process, this tree's attention forward at each tile plan of
+FWD_PLANS and its backward at each plan of BWD_PLANS, twice each (the
+plans in order, then reversed), through the same wrappers with
+`fwd_tiles` / `bwd_tiles` answering the plan.
+
+Prints one JSON line with the card's name and power limit, each tree's
+numbers by pass and the plan timings. Without a CUDA card, or without
+exactly one BASE_ROOT, it exits 2 and prints no result.
 """
 
 from __future__ import annotations
 
-import ctypes
+import contextlib
+import dataclasses
 import json
+import os
+import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -39,10 +55,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from torched_impala_tpu_torch.ops import _build, attention, attention_cuda, lstm_cuda, profiling
-
+THIS_ROOT = Path(__file__).resolve().parents[2]
 LSTM_SHAPES = [(32, 256, 256), (8, 256, 256)]  # B, F, H
 ATTN_SHAPES = {"learner": (32, 21, 4, 64, 128), "long": (2, 1024, 4, 64, 128)}  # B, T, H, dh, W
+VTRACE_T = (20, 100, 1000)
+# T, B, A: the pong_transformer learner's, then batches wider than any
+# preset's, where the fused forward's 8 blocks take 32 columns a block
+# (B = 256) or walk several column tiles each (B = 1024).
+LOSS_SHAPES = {"learner": (20, 32, 6), "wide": (20, 256, 18), "wider": (20, 1024, 18)}
 # (key_warps, query_groups) of the forward and of the backward timed at
 # each shape.
 FWD_PLANS = {
@@ -53,130 +73,36 @@ BWD_PLANS = {
     "learner": [(10, 1), (12, 1), (5, 1), (4, 2), (3, 2), (2, 2)],
     "long": [(4, 3), (4, 2), (3, 4), (3, 3), (2, 4), (6, 2), (4, 1)],
 }
-SOURCES = ("lstm_cell", "attention_fwd", "attention_bwd")
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# Every entry point either tree may export: this tree's, the forward of
-# the trees before it took a tile plan, and the two backward kernels of
-# the trees before the backward was one kernel.
-SIGNATURES = {
-    "lstm_cell_launch": lstm_cuda._ARGTYPES,
-    **{fn: args for entries in attention_cuda._SIGNATURES.values() for fn, args in entries.items()},
-    "attention_fwd_launch": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
-    "attention_dq_launch": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _P],
-    "attention_dkv_launch": [_P] * 10 + [_I] * 6 + [_F, _I, _I, _P],
-}
 CALLS = 100
+STEP_CALLS = 10
 
 
-def load(csrc: Path) -> dict[str, ctypes.CDLL]:
-    """The three kernels of `csrc`, built (`_build.build_all`) and loaded
-    with the signatures of the entry points they export."""
-    libs = {}
-    for name, path in _build.build_all(list(SOURCES), csrc).items():
-        lib = ctypes.CDLL(str(path))
-        for fn_name, argtypes in SIGNATURES.items():
-            if hasattr(lib, fn_name):
-                getattr(lib, fn_name).argtypes = argtypes
-                getattr(lib, fn_name).restype = ctypes.c_int
-        libs[name] = lib
-    return libs
+def _events_ms(fn, iters=50, warmup=5) -> float:
+    """Median ms of `fn` between two CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def device_us(fn, kernel: str | None) -> float:
+def _device_us(fn, kernel: str | None) -> float:
     """Mean device µs a call of `fn` spends in kernels named `kernel` (in
     every kernel it launches when `kernel` is None)."""
+    from torched_impala_tpu_torch.ops import profiling
+
     fn()
     us, _ = profiling.device_us(fn, calls=CALLS, name=kernel)
     if us is None:
         raise RuntimeError(f"the profiler saw no device time in {kernel}")
     return us
-
-
-def _check(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what}: kernel launch failed with cudaError {rc}")
-
-
-def workloads(device) -> dict:
-    """name -> (kernel name, fn(libs)) for each timed call; a kernel name
-    of None times every kernel the call launches. Each fn holds its
-    tensors, so the pointers it passes stay valid."""
-    rng = np.random.default_rng(0)
-
-    def f32(*shape, scale=1.0):
-        return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(device)
-
-    stream = torch.cuda.current_stream(device).cuda_stream
-    jobs = {}
-    for B, F, H in LSTM_SHAPES:
-        args = [f32(B, F), f32(B, H), f32(B, H), f32(F, 4 * H, scale=F**-0.5),
-                f32(H, 4 * H, scale=H**-0.5), f32(4 * H, scale=0.1)]
-        outs = [torch.empty(B, H, device=device), torch.empty(B, H, device=device),
-                torch.empty(B, 4 * H, device=device)]
-
-        def lstm_call(libs, tensors=args + outs, B=B, F=F, H=H):
-            ptrs = [t.data_ptr() for t in tensors]
-            _check(libs["lstm_cell"].lstm_cell_launch(*ptrs, B, F, H, device.index, stream), "lstm_cell")
-
-        jobs[f"lstm_cell_{B}x{F}x{H}"] = ("lstm_cell_kernel", lstm_call)
-
-    def i32(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
-
-    for label, (B, T, H, dh, W), ragged in (
-        *((label, shape, False) for label, shape in ATTN_SHAPES.items()),
-        ("ragged_learner", ATTN_SHAPES["learner"], True),
-    ):
-        S = W + T
-        q, k, v, g = f32(B, T, H, dh), f32(B, S, H, dh), f32(B, S, H, dh), f32(B, T, H, dh)
-        if ragged:
-            seg_q, seg_ctx = (i32(a) for a in ragged_segments(rng, B, T, W))
-        else:
-            seg_q = torch.ones(B, T, dtype=torch.int32, device=device)
-            seg_ctx = torch.ones(B, S, dtype=torch.int32, device=device)
-        out, lse = attention.windowed_attention_reference(q, k, v, seg_q, seg_ctx, W)
-        o, lse_out, dq, dk, dv = (torch.empty_like(t) for t in (q, lse, q, k, k))
-        tail = (B, T, S, H, dh, W)
-        launch_tail = (dh**-0.5, 0, device.index, stream)
-
-        def fwd_call(libs, plan=None, tensors=(q, k, v, seg_q, seg_ctx, o, lse_out), tail=tail,
-                     launch_tail=launch_tail):
-            lib = libs["attention_fwd"]
-            ptrs = [t.data_ptr() for t in tensors]
-            if hasattr(lib, "attention_fwd_plan_launch"):
-                plan = plan or attention_cuda.fwd_tiles(tail[1], tail[2], tail[4])
-                rc = lib.attention_fwd_plan_launch(*ptrs, *tail, *plan, *launch_tail)
-            else:
-                rc = lib.attention_fwd_launch(*ptrs, *tail, *launch_tail)
-            _check(rc, "attention_fwd")
-
-        jobs[f"attention_fwd_{label}"] = ("attention_fwd_kernel", fwd_call)
-        if ragged:
-            continue
-
-        def bwd_call(libs, plan=None, tensors=(q, k, v, g, out, lse, seg_q, seg_ctx), tail=tail,
-                     launch_tail=launch_tail, outs=(dq, dk, dv), S=S):
-            lib = libs["attention_bwd"]
-            if hasattr(lib, "attention_bwd_launch"):
-                key_warps, query_groups = plan or attention_cuda.bwd_tiles(S, tail[4])
-                tiles = -(-S // (attention_cuda.BWD_ROWS * key_warps))
-                part = torch.empty((tiles, *outs[0].shape), device=device) if tiles > 1 else None
-                ptrs = [t.data_ptr() for t in (*tensors, outs[0])]
-                rc = lib.attention_bwd_launch(
-                    *ptrs, None if part is None else part.data_ptr(), outs[1].data_ptr(),
-                    outs[2].data_ptr(), *tail, key_warps, query_groups, *launch_tail,
-                )
-                _check(rc, "attention_bwd")
-                return
-            q_, k_, v_, g_, o_, lse_, segq_, segc_ = tensors
-            dcap = attention.row_term(o_, g_)
-            ptrs = [t.data_ptr() for t in (q_, k_, v_, g_, lse_, dcap, segq_, segc_)]
-            _check(lib.attention_dq_launch(*ptrs, outs[0].data_ptr(), *tail, *launch_tail), "attention_dq")
-            _check(lib.attention_dkv_launch(*ptrs, outs[1].data_ptr(), outs[2].data_ptr(), *tail,
-                                            *launch_tail), "attention_dkv")
-
-        jobs[f"attention_bwd_call_{label}"] = (None, bwd_call)
-    return jobs
 
 
 def ragged_segments(rng, B: int, T: int, W: int):
@@ -189,6 +115,167 @@ def ragged_segments(rng, B: int, T: int, W: int):
     return seg_q, np.concatenate([cache, seg_q], axis=1)
 
 
+def attention_calls(device) -> dict:
+    """name -> (kernel name or None, fn) of the attention workloads; the
+    backward's fn holds the forward's outputs as its saved tensors."""
+    from torched_impala_tpu_torch.ops import attention_cuda
+
+    rng = np.random.default_rng(1)
+
+    def f32(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(device)
+
+    def i32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+
+    calls = {}
+    for label, (B, T, H, dh, W), ragged in (
+        *((label, shape, False) for label, shape in ATTN_SHAPES.items()),
+        ("ragged_learner", ATTN_SHAPES["learner"], True),
+    ):
+        S = W + T
+        q, k, v, g = f32(B, T, H, dh), f32(B, S, H, dh), f32(B, S, H, dh), f32(B, T, H, dh)
+        if ragged:
+            seg_q, seg_ctx = (i32(a) for a in ragged_segments(rng, B, T, W))
+        else:
+            seg_q = torch.ones(B, T, dtype=torch.int32, device=device)
+            seg_ctx = torch.ones(B, S, dtype=torch.int32, device=device)
+        args = (q, k, v, seg_q, seg_ctx, W)
+        calls[f"attention_fwd_{label}"] = (
+            "attention_fwd_kernel", lambda args=args: attention_cuda.attention_forward_cuda(*args))
+        if not ragged:
+            o, lse = attention_cuda.attention_forward_cuda(*args)
+            bwd = (q, k, v, g, o, lse, seg_q, seg_ctx, W)
+            calls[f"attention_bwd_call_{label}"] = (
+                None, lambda bwd=bwd: attention_cuda.attention_backward_cuda(*bwd))
+    return calls
+
+
+def measure() -> dict:
+    """This process's tree, timed on the card (see the module note)."""
+    from torched_impala_tpu_torch import configs, resolve_device
+    from torched_impala_tpu_torch.ops import losses, lstm_cuda, profiling, vtrace_cuda
+    from torched_impala_tpu_torch.runtime.learner import Learner
+
+    device = resolve_device()
+    rng = np.random.default_rng(0)
+
+    def f32(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(device)
+
+    out = {"device_us": {}}
+    for B, F, H in LSTM_SHAPES:
+        args = (f32(B, F), f32(B, H), f32(B, H), f32(F, 4 * H, scale=F**-0.5),
+                f32(H, 4 * H, scale=H**-0.5), f32(4 * H, scale=0.1))
+        out["device_us"][f"lstm_cell_{B}x{F}x{H}"] = _device_us(
+            lambda args=args: lstm_cuda.lstm_cell_cuda(*args), "lstm_cell_kernel")
+    for name, (kernel, fn) in attention_calls(device).items():
+        out["device_us"][name] = _device_us(fn, kernel)
+
+    out["vtrace_device_us_by_T"] = {}
+    for T in VTRACE_T:
+        x = dict(log_rhos=f32(T, 32, scale=0.5), discounts=torch.full((T, 32), 0.99, device=device),
+                 rewards=f32(T, 32), values=f32(T, 32), bootstrap_value=f32(32))
+        out["vtrace_device_us_by_T"][str(T)] = _device_us(
+            lambda x=x: vtrace_cuda.vtrace_cuda(**x), "vtrace_kernel")
+
+    cfg = losses.ImpalaLossConfig(fused_epilogue=True)
+    out["fused_loss_call"] = {}
+    for label, (T, B, A) in LOSS_SHAPES.items():
+        x = dict(
+            target_logits=f32(T, B, A), values=f32(T, B), behaviour_logits=f32(T, B, A),
+            bootstrap_value=f32(B),
+            actions=torch.from_numpy(rng.integers(0, A, size=(T, B))).to(device),
+            rewards=f32(T, B), discounts=torch.full((T, B), 0.99, device=device),
+            mask=torch.from_numpy((rng.uniform(size=(T, B)) > 0.2).astype(np.float32)).to(device),
+        )
+
+        def loss_call(x=x):
+            leaves = {k: x[k].clone().requires_grad_() for k in ("target_logits", "values")}
+            total = losses.impala_loss(**{**x, **leaves}, config=cfg).total
+            torch.autograd.grad(total, list(leaves.values()))
+
+        loss_call()
+        us, kernels = profiling.device_us(loss_call, calls=CALLS)
+        fused_us, fused_kernels = profiling.device_us(loss_call, calls=CALLS, name="fused_loss")
+        out["fused_loss_call"][label] = dict(
+            shape=[T, B, A], device_us=us, kernels=kernels, fused_loss_kernels_us=fused_us,
+            fused_loss_kernels=fused_kernels, events_ms=_events_ms(loss_call))
+
+    pcfg = dataclasses.replace(configs.PONG_TRANSFORMER, fused_epilogue=True,
+                               transformer_dense_kernel="kernel")
+    agent = configs.make_agent(pcfg, seed=0)
+    learner = Learner(agent=agent, optimizer=configs.make_optimizer(pcfg),
+                      config=configs.make_learner_config(pcfg), device=device)
+    T, B, A = pcfg.unroll_length, pcfg.batch_size, pcfg.num_actions
+    batch = (
+        torch.from_numpy(rng.integers(0, 256, size=(T + 1, B, *pcfg.obs_shape),
+                                      dtype=np.uint8)).to(device),
+        torch.zeros(T + 1, B, dtype=torch.bool, device=device),
+        torch.from_numpy(rng.integers(0, A, size=(T, B))).to(device),
+        f32(T, B, A),
+        torch.from_numpy((rng.uniform(size=(T, B)) < 0.05).astype(np.float32)).to(device),
+        torch.ones(T, B, device=device),
+        agent.net.initial_state(B),
+    )
+    step = lambda: learner.train_step(batch)  # noqa: E731
+    for _ in range(3):
+        step()
+    busy_us, step_kernels = profiling.device_us(step, calls=STEP_CALLS)
+    by_kernel = profiling.device_us_by_kernel(step, calls=STEP_CALLS)
+    out["pong_transformer_train_step"] = dict(
+        device_busy_ms=busy_us / 1e3, kernels=step_kernels, device_us_by_kernel=by_kernel)
+    return out
+
+
+@contextlib.contextmanager
+def _plan(module, name: str, plan):
+    """`module.<name>` (a tile-plan function) answers `plan` inside."""
+    saved = getattr(module, name)
+    setattr(module, name, lambda *_: plan)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def plan_sweeps(device) -> dict:
+    """{"fwd" | "bwd": {shape: {plan: [device µs, ...]}}} of this tree's
+    attention kernels at each plan of FWD_PLANS / BWD_PLANS."""
+    from torched_impala_tpu_torch.ops import attention_cuda
+
+    calls = attention_calls(device)
+    plans: dict[str, dict[str, dict[str, list[float]]]] = {"fwd": {}, "bwd": {}}
+    for kind, all_plans, tiles, job in (
+        ("fwd", FWD_PLANS, "fwd_tiles", "attention_fwd_{}"),
+        ("bwd", BWD_PLANS, "bwd_tiles", "attention_bwd_call_{}"),
+    ):
+        for shape, shape_plans in all_plans.items():
+            kernel, fn = calls[job.format(shape)]
+            for plan in shape_plans + shape_plans[::-1]:
+                with _plan(attention_cuda, tiles, plan):
+                    us = _device_us(fn, kernel)
+                plans[kind].setdefault(shape, {}).setdefault(str(list(plan)), []).append(us)
+    return plans
+
+
+def _run_tree(root: Path) -> dict:
+    """`measure()` in a fresh process whose imports resolve to `root`."""
+    code = (
+        "import json, runpy, sys; sys.path.insert(0, sys.argv[1]); "
+        "print('MEASURE ' + json.dumps(runpy.run_path(sys.argv[2])['measure']()))"
+    )
+    env = dict(os.environ, PYTHONPATH=str(root))
+    proc = subprocess.run(
+        [sys.executable, "-c", code, str(root), str(Path(__file__).resolve())],
+        cwd=root, env=env, capture_output=True, text=True,
+    )
+    lines = [line for line in proc.stdout.splitlines() if line.startswith("MEASURE ")]
+    if proc.returncode != 0 or not lines:
+        raise RuntimeError(f"measuring {root} failed (rc {proc.returncode}):\n{proc.stderr[-4000:]}")
+    return json.loads(lines[-1][len("MEASURE "):])
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if len(argv) != 1:
@@ -199,30 +286,14 @@ def main(argv=None) -> int:
         return 2
     from torched_impala_tpu_torch import resolve_device
 
-    device = resolve_device()
-    trees = {"base": Path(argv[0]), "this": _build.CSRC}
-    libs = {label: load(csrc) for label, csrc in trees.items()}
-    times: dict[str, dict[str, list[float]]] = {}
-    jobs = workloads(device)
-    for name, (kernel, fn) in jobs.items():
-        for label in ("base", "this", "this", "base"):
-            us = device_us(lambda: fn(libs[label]), kernel)
-            times.setdefault(name, {}).setdefault(label, []).append(us)
-    plans: dict[str, dict[str, dict[str, list[float]]]] = {"fwd": {}, "bwd": {}}
-    for kind, all_plans, job, kernel in (
-        ("fwd", FWD_PLANS, "attention_fwd_{}", "attention_fwd_kernel"),
-        ("bwd", BWD_PLANS, "attention_bwd_call_{}", None),
-    ):
-        for shape, shape_plans in all_plans.items():
-            _, fn = jobs[job.format(shape)]
-            for plan in shape_plans + shape_plans[::-1]:
-                us = device_us(lambda: fn(libs["this"], plan), kernel)
-                plans[kind].setdefault(shape, {}).setdefault(str(list(plan)), []).append(us)
+    trees = {"base": Path(argv[0]).resolve(), "this": THIS_ROOT}
+    passes = [{"tree": label, **_run_tree(trees[label])} for label in ("base", "this", "this", "base")]
+    plans = plan_sweeps(resolve_device())
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
-    print(json.dumps({"card": smi, "base": str(trees["base"]), "device_us": times,
+    print(json.dumps({"card": smi, "base": str(trees["base"]), "passes": passes,
                       "fwd_plans_device_us": plans["fwd"], "bwd_plans_device_us": plans["bwd"]}))
     return 0
 

@@ -4,10 +4,10 @@ Replace the Pallas TPU kernel `_fused_sums_kernel_call` of
 `torched_impala_tpu/ops/vtrace_pallas.py` (kernel `_fused_loss_kernel`)
 together with the XLA around it in `_fused_core_fwd` and
 `_fused_core_bwd`. The source's header note gives the design (the
-forward: a cluster of 8 blocks, each a share of the batch columns, rows of
-the logits by lane groups, the staged V-trace, the sums in a fixed order
-across the cluster; the backward: one thread an element of the logit
-cube) and the bound (launch latency at the learner's shape). Their
+forward: clusters of 8 blocks, each a tile of the batch columns, one
+cluster where B <= 64; rows of the logits by lane groups, the staged
+V-trace, the sums in a fixed order across each cluster and then across
+the clusters; the backward: one thread an element of the logit cube) and the bound (launch latency at the learner's shape). Their
 plain versions are `ops/fused_loss.py:fused_core_reference` and
 `fused_core_backward_reference`.
 
@@ -31,7 +31,7 @@ LAUNCHES = {"fwd": 0, "bwd": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "fused_loss_fwd_launch": [_P] * 13 + [_I] * 3 + [_F] * 4 + [_I, _P],
+    "fused_loss_fwd_launch": [_P] * 14 + [_I] * 3 + [_F] * 4 + [_I, _P],
     "fused_loss_bwd_launch": [_P] * 13 + [ctypes.c_long, _I, _I, _P],
 }
 
@@ -84,9 +84,12 @@ def fused_loss_fwd(
     vs, adv, lse, ent = (torch.empty((T, B), dtype=torch.float32, device=device)
                          for _ in range(4))
     sums = torch.empty((5,), dtype=torch.float32, device=device)
+    # Each cluster's five sums where B takes more than one (at most one
+    # cluster per 64 columns), added in order by the launch's fold kernel.
+    partials = torch.empty((-(-B // 64), 5), dtype=torch.float32, device=device)
     _launch(
         "fused_loss_fwd_launch", "fused_loss_fwd",
-        *(x.data_ptr() for x in (*ins, vs, adv, lse, ent, sums)),
+        *(x.data_ptr() for x in (*ins, vs, adv, lse, ent, sums, partials)),
         T, B, A,
         float(clip_rho), float(clip_c), float(clip_pg_rho), float(lambda_),
         device.index, torch.cuda.current_stream(device).cuda_stream,
