@@ -8,7 +8,7 @@ non-zero (no phase's failure is caught):
 
 1. env: the card, torch/CUDA versions, the TF32 settings in force.
 2. build: nvcc builds every kernel from csrc/ (one process per source,
-   all at once); the seconds it took.
+   all at once, seven sources); the seconds it took.
 3. vtrace: the CUDA kernel against its plain PyTorch version on the card
    over shapes x clip thresholds x lambda (max abs error <= 1e-5; T = 33
    and 1000 carry the recursion across 32-step chunks) and with a NaN
@@ -36,6 +36,11 @@ non-zero (no phase's failure is caught):
    autograd.Function (rtol 1e-4, atol 1e-5 x the gradient's largest
    magnitude); times at the learner's and the actor's shapes, bound and
    the cuDNN baseline (two F.conv2d calls with the relus and the add).
+   Then the general kernel, at shapes past the tuned kernels' shared
+   memory (bf16 C = 96 and 128; f32 (C, W) = (48, 42) and (64, 21)): the
+   same gates, one general launch a call and none of the tuned kernels',
+   two launches bit-identical; its time, bound and the cuDNN pair's at
+   (8, 42, 42, 48) in f32.
 6. fused_loss: the fused loss's forward kernel against its plain version
    at (T, B, A) = (20, 32, 6), (100, 32, 15), (1, 1, 2), (7, 130, 4) x
    the three threshold sets x lambda, with a mask with zeros (the five
@@ -58,7 +63,11 @@ non-zero (no phase's failure is caught):
    (TF32 off), gradients rtol 1e-4, atol 1e-5 x the largest gradient,
    bf16 within one bf16 rounding; bf16 dtypes through the
    autograd.Function; two forward launches and two backward launches
-   bit-identical at the learner and long shapes. Times of each call and
+   bit-identical at the learner and long shapes. Head widths 257, 320
+   and 512 in f32 and bf16 on the general kernels (csrc/attention_wide.cu)
+   at the same gates, one wide launch each way a call and none of the
+   tiled kernels'; their time, bound and SDPA's at (B=8, T=21, H=4,
+   dh=512, W=128) in f32, two launches bit-identical. Times of each call and
    its plain version at those two
    shapes (events, and device time with every kernel of the call summed),
    bounds, `F.scaled_dot_product_attention` with the same boolean mask as
@@ -72,14 +81,32 @@ non-zero (no phase's failure is caught):
    off) and bf16 torso, on a small input; each unroll has a `first`
    reset in the middle, the Breakout one a non-zero start state.
 9. pong: `loop.train` with the PONG preset at full width (84x84x4 uint8,
-   Nature-CNN, bf16 torso, T=20, B=32 as 4 thread actors x 8 fake envs)
-   for 20 learner steps on the card, with every kernel's launch count
-   zeroed just before and read just after; then the learner's train step
-   alone, timed on a fixed batch, one actor alone, and a profiled short
-   run for the device's idle share.
-10. breakout: the same with the BREAKOUT preset (IMPALA deep ResNet,
-   LSTM(256) core, bf16 torso, 4 actions) for 12 learner steps, once
-   with the preset's unfused blocks and once with `fused_conv=True`.
+   Nature-CNN, bf16 torso, T=20, B=32) on the card, three runs, each
+   with every kernel's launch count zeroed just before and read just
+   after, its loop steps/s and env frames/s from the 5th logged step, a
+   profiled short run for the device's idle share, V-trace launches a
+   step (>= 1) and `os.cpu_count()`:
+   - "pong": the preset as configured, 32 env worker processes in two
+     pools of 16, lockstep, each pool driven by a batched-inference
+     thread on the card, the queue feed; 20 learner steps. At the 5th
+     step no worker is among nvidia-smi's compute apps or holds the card's
+     device files (this process does); after the run every worker has
+     exited and no shared-memory segment of the pools is left. Then one
+     pool of 16 workers alone: its lockstep step, and one actor thread
+     driving it;
+   - "pong_ring": the same with `traj_ring=True`, and: the ring's slots
+     are pinned host memory, the first 4 ring batches on the card equal
+     a host copy of their slot taken just before its release, and the
+     ring's feed of one batch (one pinned slot to the card on a side
+     stream) is timed against the queue feed's (np.stack of 32 unrolls
+     plus pageable copies);
+   - "pong_thread": 4 thread actors x 8 envs, 12 learner steps, with the
+     learner's train step alone on a fixed batch, one actor alone and
+     one fake env step.
+10. breakout: `loop.train` with the BREAKOUT preset (IMPALA deep ResNet,
+   LSTM(256) core, bf16 torso, 4 actions) as 4 thread actors x 8 envs
+   for 12 learner steps, as pong_thread, once with the preset's unfused
+   blocks and once with `fused_conv=True`.
 11. pong_transformer: the same with the PONG_TRANSFORMER preset
    (Nature-CNN bf16 torso, transformer core d_model 256, 2 layers, 4
    heads, window 128) for 12 learner steps with the attention kernels
@@ -87,16 +114,23 @@ non-zero (no phase's failure is caught):
    forward and backward >= 2 times a learner step each, the fused loss's
    forward and backward >= once each and V-trace never.
 
-Then the `kernels` line, the card's name and power limit, and the last
-line `{"ok": true, "device": {...}}`. Without CUDA it exits 2 and prints
-no result.
+Then, whether the phases passed or failed, every process the run started
+is stopped: the pools' forkserver and resource tracker (they outlive the
+pools), then any descendant still alive after 5 s, which fails the run.
+Then the `kernels` line (the general kernels beside the tuned ones they
+stand in for, with the same `replaces`; no main path reaches their
+shapes, so their launches read 0), the card's name and power limit, and
+the last line `{"ok": true, "device": {...}}`. Without CUDA it exits 2
+and prints no result.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -126,6 +160,10 @@ THRESHOLDS = [
     dict(clip_rho_threshold=0.5, clip_c_threshold=2.0, clip_pg_rho_threshold=2.0),
 ]
 PONG_STEPS = 20
+# The thread-actor Pong run beside the preset's process actors.
+PONG_THREAD_STEPS = 12
+# Ring batches whose device copy is held to a host copy of its slot.
+RING_PROBE_BATCHES = 4
 BREAKOUT_STEPS = 12
 PROFILED_STEPS = 8
 # B, F, H: the learner's and the actors' shapes first (both timed), then
@@ -143,6 +181,14 @@ BLOCK_SHAPES = BLOCK_LEARNER_SHAPES + [(8, 42, 42, 16), (8, 21, 21, 32), (8, 11,
 # conv's kernel is staged before that conv).
 BLOCK_BF16_PADDED_SHAPES = [(3, 13, 7, 24), (2, 13, 21, 1), (2, 9, 9, 72)]
 BLOCK_F32_SHAPES = [(3, 13, 7, 24), (2, 42, 42, 16), (1, 1, 1, 1)]
+# Shapes past the tuned kernels' shared memory, which take the general
+# kernel: bf16 with C above 80, f32 where two staged kernels and a one-row
+# band pass 227 KB (C = 48 from W = 42; C = 64 at any W). The last is
+# timed for the kernels line.
+BLOCK_GENERAL_CASES = [
+    ((2, 9, 9, 96), "bfloat16"), ((2, 7, 11, 128), "bfloat16"),
+    ((2, 5, 42, 48), "float32"), ((2, 21, 21, 64), "float32"), ((8, 42, 42, 48), "float32"),
+]
 BF16_ULP = 2.0**-7
 FUSED_SHAPES = [(20, 32, 6), (100, 32, 15), (1, 1, 2), (7, 130, 4)]  # T, B, A
 # (B, T, H, dh, W): the learner's (T + 1 = 21 queries over S = W + 21),
@@ -155,9 +201,18 @@ ATTN_RAGGED = [(3, 1, 2, 16, 0), (3, 9, 2, 16, 7), (5, 40, 3, 32, 19)]
 # f32 and bf16.
 ATTN_WIDTHS = [(3, 9, 2, 8, 7), (2, 40, 2, 128, 19)]
 ATTN_F32_ATOL = 2e-5
+# Head widths past the tiled kernels' 256, which take the general kernels
+# of csrc/attention_wide.cu, each in f32 and bf16; then the shape they are
+# timed at (f32).
+ATTN_WIDE = [(2, 21, 2, dh, 19) for dh in (257, 320, 512)]
+ATTN_WIDE_TIMED = (8, 21, 4, 512, 128)
 PONG_TRANSFORMER_STEPS = 12
 # Kernels that share a source file with another.
-SOURCES = {"fused_loss_fwd": "fused_loss", "fused_loss_bwd": "fused_loss"}
+SOURCES = {
+    "fused_loss_fwd": "fused_loss", "fused_loss_bwd": "fused_loss",
+    "attention_wide_fwd": "attention_wide", "attention_wide_bwd": "attention_wide",
+    "resblock_general": "resblock",
+}
 
 
 START = time.monotonic()
@@ -511,6 +566,10 @@ def phase_resblock(device):
     if not hgmma or min(hgmma.values()) == 0:
         raise AssertionError(f"resblock: bf16 kernels without HGMMA instructions: {hgmma}")
 
+    def library_block(x_nchw, w1, b1, w2, b2):
+        out = F.conv2d(F.relu(x_nchw), w1, b1, padding=1)
+        return x_nchw + F.conv2d(F.relu(out), w2, b2, padding=1)
+
     per_shape, equal_share, plans = {}, {}, {}
     for shape in BLOCK_SHAPES + BLOCK_BF16_PADDED_SHAPES:
         args = inputs(*shape, torch.bfloat16, seed=shape[1])
@@ -533,6 +592,55 @@ def phase_resblock(device):
         torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
         f32_err["x".join(map(str, shape))] = float((out - ref).abs().max())
 
+    # The general kernel, at shapes the tuned kernels' shared memory does
+    # not hold: one general launch a call, none of the tuned kernels',
+    # the tuned kernels' gates, two launches bit-identical.
+    general_err = {}
+    tuned_before, general_before = conv_block_cuda.LAUNCHES, conv_block_cuda.GENERAL_LAUNCHES
+    for shape, dtype_name in BLOCK_GENERAL_CASES:
+        dtype = getattr(torch, dtype_name)
+        if conv_block_cuda.route(dtype, shape[2], shape[3]) != "general":
+            raise AssertionError(f"resblock: {shape} {dtype_name} does not route to the general kernel")
+        args = inputs(*shape, dtype, seed=shape[3])
+        out = conv_block_cuda.resblock_cuda(*args)
+        again = conv_block_cuda.resblock_cuda(*args)
+        ref = conv_block.block_reference(*args)
+        torch.cuda.synchronize()
+        key = f"{dtype_name}_" + "x".join(map(str, shape))
+        if not torch.equal(out, again):
+            raise AssertionError(f"resblock general {key}: two launches differ")
+        if dtype == torch.bfloat16:
+            torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_ULP, atol=BF16_ULP)
+            if float((out == ref).float().mean()) < 0.99:
+                raise AssertionError(f"resblock general {key}: under 99% of elements equal")
+        else:
+            torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+        general_err[key] = float((out.float() - ref.float()).abs().max())
+    launched = (conv_block_cuda.LAUNCHES - tuned_before,
+                conv_block_cuda.GENERAL_LAUNCHES - general_before)
+    if launched != (0, 2 * len(BLOCK_GENERAL_CASES)):
+        raise AssertionError(f"resblock general: launches (tuned, general) {launched}")
+    general_shape = shape  # the last case, f32: timed
+    N, H, W, C = general_shape
+    args = inputs(*general_shape, torch.float32, seed=7)
+    x, k1, b1, k2, b2 = args
+    lib_args = (x.permute(0, 3, 1, 2), k1.permute(3, 2, 0, 1).contiguous(), b1,
+                k2.permute(3, 2, 0, 1).contiguous(), b2)
+    general_bytes = 2 * N * H * W * C * 4 + 4 * (2 * 9 * C * C + 2 * C)
+    general_ops = 2 * 2 * 9 * C * C * N * H * W + 5 * N * H * W * C
+    general_bound_ms, general_bound_by = bound(general_bytes, general_ops, PEAK_F32_OPS_PER_S)
+    general = dict(
+        max_abs_err=max(general_err.values()),
+        ms=time_cuda(lambda: conv_block_cuda.resblock_cuda(*args), iters=20, warmup=3),
+        plain_ms=time_cuda(lambda: conv_block.block_reference(*args), iters=20, warmup=3),
+        bound_ms=general_bound_ms,
+        bound_by=general_bound_by,
+        library_ms=time_cuda(lambda: library_block(*lib_args), iters=20, warmup=3),
+    )
+    general_device_us, general_kernels = profiling.device_us(
+        lambda: conv_block_cuda.resblock_cuda(*args), calls=10, name="resblock_general"
+    )
+
     grad_args = [t.requires_grad_() for t in inputs(4, 11, 11, 32, torch.float32, seed=5)]
     g_kernel = torch.autograd.grad(
         conv_block.fused_residual_block(*grad_args).square().sum(), grad_args
@@ -546,10 +654,6 @@ def phase_resblock(device):
     for a, b in zip(g_kernel, g_plain):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * float(b.abs().max()))
     grad_err = max(float((a - b).abs().max()) for a, b in zip(g_kernel, g_plain))
-
-    def library_block(x_nchw, w1, b1, w2, b2):
-        out = F.conv2d(F.relu(x_nchw), w1, b1, padding=1)
-        return x_nchw + F.conv2d(F.relu(out), w2, b2, padding=1)
 
     times, device_times = {}, []
     totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes=0, ops=0)
@@ -604,13 +708,22 @@ def phase_resblock(device):
             "grad_max_abs_diff": grad_err,
             "times_by_shape": times,
             "sum_over_the_three_learner_shapes": dict(totals, bound_by=total_bound_by),
+            "general_max_abs_err_by_case": general_err,
+            "general_timed": dict(
+                general, shape=list(general_shape), dtype="float32",
+                device_us_profiler=general_device_us,
+                kernels_a_call=general_kernels, bytes=general_bytes, ops=general_ops,
+            ),
         }
     )
-    return dict(
-        max_abs_err=max(worst, *f32_err.values()), ms=totals["ms"],
-        plain_ms=totals["plain_ms"], bound_ms=totals["bound_ms"],
-        bound_by=total_bound_by, library_ms=totals["library_ms"],
-    )
+    return {
+        "resblock": dict(
+            max_abs_err=max(worst, *f32_err.values()), ms=totals["ms"],
+            plain_ms=totals["plain_ms"], bound_ms=totals["bound_ms"],
+            bound_by=total_bound_by, library_ms=totals["library_ms"],
+        ),
+        "resblock_general": general,
+    }
 
 
 def loss_inputs(T, B, A, seed, device, mask_zeros=True):
@@ -959,6 +1072,20 @@ def phase_attention(device):
         errors["bf16_" + label] = kernel_vs_plain(
             attention_inputs(*shape, seed=sum(shape), device=device, dtype="bfloat16"), bf16=True
         )
+    # Head widths past 256: the general kernels, one launch each way a
+    # call and none of the tiled kernels', at the same gates.
+    wide_errors = {}
+    before = (dict(attention_cuda.LAUNCHES), dict(attention_cuda.WIDE_LAUNCHES))
+    for shape in ATTN_WIDE:
+        label = "x".join(map(str, shape))
+        wide_errors[label] = kernel_vs_plain(attention_inputs(*shape, seed=sum(shape), device=device))
+        wide_errors["bf16_" + label] = kernel_vs_plain(
+            attention_inputs(*shape, seed=sum(shape), device=device, dtype="bfloat16"), bf16=True
+        )
+    wide_launched = {k: v - before[1][k] for k, v in attention_cuda.WIDE_LAUNCHES.items()}
+    if attention_cuda.LAUNCHES != before[0] or wide_launched != {"fwd": 6, "bwd": 6}:
+        raise AssertionError(f"attention wide: launches {attention_cuda.LAUNCHES}, {wide_launched}")
+
     # Through the autograd.Function: bf16 in, bf16 out and bf16 grads.
     x = attention_inputs(*ATTN_LEARNER, seed=2, device=device, dtype="bfloat16")
     leaves = [x[k].clone().requires_grad_() for k in ("q", "k", "v")]
@@ -1037,8 +1164,43 @@ def phase_attention(device):
                 )
                 for name, keys in (("fwd", ("fwd",)), ("bwd", ("dq", "dk", "dv")))
             }
-    emit({"phase": "attention", "hmma": hmma, "max_abs_err_by_shape": errors, "times_ms": times})
-    return {f"attention_{k}": v for k, v in checked.items()}
+    # The general kernels, timed at one wide shape (f32, CUDA cores).
+    x = attention_inputs(*ATTN_WIDE_TIMED, seed=4, device=device)
+    args = (x["q"], x["k"], x["v"], x["seg_q"], x["seg_ctx"], x["W"])
+    out, lse = attention.windowed_attention_reference(*args)
+    bwd = (x["q"], x["k"], x["v"], x["g"], out, lse, x["seg_q"], x["seg_ctx"], x["W"])
+    for fn, fn_args in ((attention_cuda.attention_forward_cuda, args),
+                        (attention_cuda.attention_backward_cuda, bwd)):
+        first, again = fn(*fn_args), fn(*fn_args)
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            raise AssertionError(f"attention wide: two launches differ at {ATTN_WIDE_TIMED}")
+    work = attention_work(x, itemsize=4)
+    yardstick = sdpa_yardstick(x, device_calls=10)
+    wide = {}
+    for name, fn, plain, fn_args, kname in (
+        ("fwd", attention_cuda.attention_forward_cuda, attention.windowed_attention_reference,
+         args, "attention_wide_fwd"),
+        ("bwd", attention_cuda.attention_backward_cuda,
+         attention.windowed_attention_backward_reference, bwd, "attention_wide_d"),
+    ):
+        bound_ms, bound_by = bound(*work[name], PEAK_F32_OPS_PER_S)
+        keys = ("fwd",) if name == "fwd" else ("dq", "dk", "dv")
+        wide[f"attention_wide_{name}"] = dict(
+            max_abs_err=max(e[k] for label, e in wide_errors.items()
+                            if not label.startswith("bf16") for k in keys),
+            ms=time_cuda(lambda: fn(*fn_args), iters=10, warmup=3),
+            plain_ms=time_cuda(lambda: plain(*fn_args), iters=10, warmup=3),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=yardstick[f"sdpa_{name}_ms"],
+        )
+        wide[f"attention_wide_{name}"]["device_us_profiler"], _ = profiling.device_us(
+            lambda: fn(*fn_args), calls=10, name=kname
+        )
+    emit({"phase": "attention", "hmma": hmma, "max_abs_err_by_shape": errors, "times_ms": times,
+          "wide_max_abs_err_by_shape": wide_errors, "wide_timed": dict(wide, shape=list(ATTN_WIDE_TIMED)),
+          "wide_sdpa": yardstick})
+    for entry in wide.values():
+        entry.pop("device_us_profiler")
+    return {**{f"attention_{k}": v for k, v in checked.items()}, **wide}
 
 
 def phase_model(device):
@@ -1118,12 +1280,32 @@ def fixed_batch(cfg, device, state):
     )
 
 
-def drive(name, cfg, steps, device):
+def train_args(cfg, device):
+    """`loop.train`'s arguments for preset `cfg` on fake envs."""
+    from torched_impala_tpu_torch import configs
+
+    return dict(
+        env_factory=configs.make_env_factory(cfg, fake=True),
+        num_actors=cfg.num_actors,
+        envs_per_actor=cfg.envs_per_actor,
+        actor_mode=cfg.actor_mode,
+        pool_mode=cfg.pool_mode,
+        pool_ready_fraction=cfg.pool_ready_fraction,
+        learner_config=configs.make_learner_config(cfg),
+        optimizer=configs.make_optimizer(cfg),
+        device=device,
+    )
+
+
+def drive(name, cfg, steps, device, standalone=True, at_step5=None, after=None):
     """`loop.train` with `cfg` for `steps` learner steps on the card, every
-    kernel's launch count set to 0 just before and read just after; then
-    the train step alone on a fixed batch, one actor alone, one fake env
-    step, and a profiled short run for the device's idle share. Raises if
-    the run did not train on the card."""
+    kernel's launch count set to 0 just before and read just after; then,
+    with `standalone`, the train step alone on a fixed batch, one actor
+    alone and one fake env step; and a profiled short run for the
+    device's idle share. `at_step5()` runs in the logger at the 5th
+    learner step; its dict goes, as `seen`, to `after(result, seen)`,
+    which runs after the run and returns a dict merged into the phase
+    line. Raises if the run did not train on the card."""
     import torch
 
     from torched_impala_tpu_torch import configs
@@ -1134,30 +1316,26 @@ def drive(name, cfg, steps, device):
     agent = configs.make_agent(cfg, seed=0)
     before = {k: v.detach().clone() for k, v in agent.net.state_dict().items()}
     log_times = []
+    seen = {}
 
     def logger(logs):
         log_times.append((logs["num_steps"], time.monotonic(), logs["total_loss"]))
+        if at_step5 is not None and logs["num_steps"] == 5:
+            seen.update(at_step5())
 
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
     t0 = time.monotonic()
     result = loop.train(
-        agent=agent,
-        env_factory=configs.make_env_factory(cfg, fake=True),
-        num_actors=cfg.num_actors,
-        envs_per_actor=cfg.envs_per_actor,
-        actor_mode=cfg.actor_mode,
-        learner_config=configs.make_learner_config(cfg),
-        optimizer=configs.make_optimizer(cfg),
-        total_steps=steps,
-        device=device,
-        logger=logger,
-        log_every=1,
+        agent=agent, total_steps=steps, logger=logger, log_every=1, **train_args(cfg, device)
     )
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = read_launches()
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    extra = {"os_cpu_count": os.cpu_count()}
+    if after is not None:
+        extra.update(after(result, seen))
 
     learner = result.learner
     final_loss = float(result.final_logs["total_loss"])
@@ -1180,46 +1358,49 @@ def drive(name, cfg, steps, device):
     (s0, t_0, _), (s1, t_1, _) = log_times[4], log_times[-1]
     steps_per_s = (s1 - s0) / (t_1 - t_0)
     T, B = cfg.unroll_length, cfg.batch_size
-    batch = fixed_batch(cfg, device, agent.net.initial_state(B))
-    step_ms = time_cuda(lambda: learner.train_step(batch), iters=20, warmup=3)
-    step_device_us, step_kernels = profiling.device_us(
-        lambda: learner.train_step(batch), calls=10
-    )
-
     factory = configs.make_env_factory(cfg, fake=True)
-    actor = VectorActor(
-        actor_id=0,
-        envs=[factory(j, j) for j in range(cfg.envs_per_actor)],
-        agent=agent,
-        param_store=learner.param_store,
-        enqueue=[].append,
-        unroll_length=T,
-        device=device,
-    )
-    actor.unroll_and_push()
-    t0 = time.perf_counter()
-    for _ in range(3):
+    if standalone:
+        batch = fixed_batch(cfg, device, agent.net.initial_state(B))
+        step_ms = time_cuda(lambda: learner.train_step(batch), iters=20, warmup=3)
+        step_device_us, step_kernels = profiling.device_us(
+            lambda: learner.train_step(batch), calls=10
+        )
+        actor = VectorActor(
+            actor_id=0,
+            envs=[factory(j, j) for j in range(cfg.envs_per_actor)],
+            agent=agent,
+            param_store=learner.param_store,
+            enqueue=[].append,
+            unroll_length=T,
+            device=device,
+        )
         actor.unroll_and_push()
-    actor_unroll_ms = (time.perf_counter() - t0) / 3 * 1e3
-    env = factory(0, 0)
-    env.reset()
-    t0 = time.perf_counter()
-    for _ in range(640):
-        env.step(0)
-    env_step_us = (time.perf_counter() - t0) / 640 * 1e6
+        t0 = time.perf_counter()
+        for _ in range(3):
+            actor.unroll_and_push()
+        actor_unroll_ms = (time.perf_counter() - t0) / 3 * 1e3
+        env = factory(0, 0)
+        env.reset()
+        t0 = time.perf_counter()
+        for _ in range(640):
+            env.step(0)
+        env_step_us = (time.perf_counter() - t0) / 640 * 1e6
+        extra.update(
+            train_step_alone_ms=step_ms,
+            train_step_device_busy_ms=None if step_device_us is None else step_device_us / 1e3,
+            train_step_kernels=step_kernels,
+            actor_unroll_alone_ms=actor_unroll_ms,
+            actor_alone_frames_per_s=T * cfg.envs_per_actor / actor_unroll_ms * 1e3,
+            fake_env_step_us=env_step_us,
+        )
 
     # Device idle share of a short profiled run of the same loop (start-up
     # included): kernel time summed over all threads against wall time.
     def short_run():
         loop.train(
             agent=configs.make_agent(cfg, seed=1),
-            env_factory=factory,
-            num_actors=cfg.num_actors,
-            envs_per_actor=cfg.envs_per_actor,
-            learner_config=configs.make_learner_config(cfg),
-            optimizer=configs.make_optimizer(cfg),
             total_steps=PROFILED_STEPS,
-            device=device,
+            **train_args(cfg, device),
         )
 
     t0 = time.perf_counter()
@@ -1228,6 +1409,8 @@ def drive(name, cfg, steps, device):
     emit(
         {
             "phase": name,
+            "actors": f"{cfg.actor_mode} {cfg.num_actors} x {cfg.envs_per_actor}",
+            "traj_ring": cfg.traj_ring,
             "learner_steps": learner.num_steps,
             "launches": launches,
             "launches_per_learner_step": {k: v / steps for k, v in launches.items()},
@@ -1235,19 +1418,12 @@ def drive(name, cfg, steps, device):
             "train_wall_s": wall,
             "learner_steps_per_s": steps_per_s,
             "env_frames_per_s": steps_per_s * T * B,
-            "train_step_alone_ms": step_ms,
-            "train_step_device_busy_ms": (
-                None if step_device_us is None else step_device_us / 1e3
-            ),
-            "train_step_kernels": step_kernels,
-            "actor_unroll_alone_ms": actor_unroll_ms,
-            "actor_alone_frames_per_s": T * cfg.envs_per_actor / actor_unroll_ms * 1e3,
-            "fake_env_step_us": env_step_us,
             "profiled_run_wall_s": profiled_wall_us / 1e6,
             "profiled_run_device_idle_share": (
                 None if busy_us is None else 1.0 - busy_us / profiled_wall_us
             ),
             "max_memory_allocated_mb": peak_mb,
+            **extra,
         }
     )
     return launches
@@ -1258,44 +1434,313 @@ def _wrappers():
         attention_cuda, conv_block_cuda, fused_loss_cuda, lstm_cuda, vtrace_cuda,
     )
 
-    return {
-        "vtrace": vtrace_cuda, "lstm_cell": lstm_cuda, "resblock": conv_block_cuda,
-        "fused_loss": fused_loss_cuda, "attention": attention_cuda,
-    }
+    return [
+        ("vtrace", vtrace_cuda, "LAUNCHES"), ("lstm_cell", lstm_cuda, "LAUNCHES"),
+        ("resblock", conv_block_cuda, "LAUNCHES"),
+        ("resblock_general", conv_block_cuda, "GENERAL_LAUNCHES"),
+        ("fused_loss", fused_loss_cuda, "LAUNCHES"), ("attention", attention_cuda, "LAUNCHES"),
+        ("attention_wide", attention_cuda, "WIDE_LAUNCHES"),
+    ]
 
 
 def read_launches() -> dict:
-    """Every kernel wrapper's launch count, by kernel name (a wrapper of two
+    """Every kernel wrapper's launch count, by kernel name (a counter of two
     kernels counts each: attention_fwd, fused_loss_bwd, ...)."""
     counts = {}
-    for name, module in _wrappers().items():
-        if isinstance(module.LAUNCHES, dict):
-            counts.update({f"{name}_{k}": v for k, v in module.LAUNCHES.items()})
+    for name, module, attr in _wrappers():
+        count = getattr(module, attr)
+        if isinstance(count, dict):
+            counts.update({f"{name}_{k}": v for k, v in count.items()})
         else:
-            counts[name] = module.LAUNCHES
+            counts[name] = count
     return counts
 
 
 def zero_launches() -> None:
-    for module in _wrappers().values():
-        if isinstance(module.LAUNCHES, dict):
-            for key in module.LAUNCHES:
-                module.LAUNCHES[key] = 0
+    for _, module, attr in _wrappers():
+        count = getattr(module, attr)
+        if isinstance(count, dict):
+            for key in count:
+                count[key] = 0
         else:
-            module.LAUNCHES = 0
+            setattr(module, attr, 0)
+
+
+def descendants(root: int) -> list:
+    """Pids of every live process below `root`, from /proc."""
+    children = collections.defaultdict(list)
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, ValueError, IndexError):
+            continue
+        children[ppid].append(int(entry))
+    found, todo = [], [root]
+    while todo:
+        for child in children.get(todo.pop(), []):
+            found.append(child)
+            todo.append(child)
+    return found
+
+
+def has_cuda_context(pid: int) -> bool:
+    """Whether process `pid` holds the card's device files (/dev/nvidia*)
+    open or mapped, as a process that has initialised CUDA does. `import
+    torch` alone loads CUDA's libraries (the driver library among them)
+    but opens no device file."""
+    try:
+        fds = os.listdir(f"/proc/{pid}/fd")
+    except OSError:
+        return False
+    for fd in fds:
+        try:
+            if os.readlink(f"/proc/{pid}/fd/{fd}").startswith("/dev/nvidia"):
+                return True
+        except OSError:
+            continue
+    try:
+        with open(f"/proc/{pid}/maps") as f:
+            return "/dev/nvidia" in f.read()
+    except OSError:
+        return False
+
+
+def processes_mid_run() -> dict:
+    """At the 5th learner step of a process-actor run: this process's
+    descendants (the forkserver and the env workers), which of them hold
+    a CUDA context, and the pids `nvidia-smi` lists as compute apps."""
+    kids = descendants(os.getpid())
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout
+    return {
+        "descendants": kids,
+        "descendants_with_cuda_context": [p for p in kids if has_cuda_context(p)],
+        "parent_has_cuda_context": has_cuda_context(os.getpid()),
+        "nvidia_smi_compute_pids": sorted(int(x) for x in smi.split() if x.strip().isdigit()),
+    }
+
+
+def check_workers(name, result, seen) -> dict:
+    """The process run's workers: alive and CUDA-free at the 5th step (not
+    in nvidia-smi's compute apps, no CUDA context, where this process
+    has one), all exited after the pools closed, and no shared-memory
+    segment of theirs left in /dev/shm."""
+    workers = set(result.pool_pids)
+    if len(workers) != 32 or not workers <= set(seen["descendants"]):
+        raise AssertionError(f"{name}: workers {sorted(workers)} not all seen mid-run: {seen}")
+    if not seen["parent_has_cuda_context"]:
+        raise AssertionError(f"{name}: this process's CUDA context is not visible in /proc")
+    for key in ("descendants_with_cuda_context", "nvidia_smi_compute_pids"):
+        if workers & set(seen[key]):
+            raise AssertionError(f"{name}: env workers {sorted(workers & set(seen[key]))} in {key}")
+    alive = [p for p in workers if os.path.exists(f"/proc/{p}")]
+    shm_left = [n for n in result.pool_shm_names if os.path.exists(f"/dev/shm/{n.lstrip('/')}")]
+    if alive or shm_left:
+        raise AssertionError(f"{name}: after close, workers alive {alive}, shm left {shm_left}")
+    return {
+        "workers": len(workers),
+        "pools": len(result.pool_shm_names),
+        "mid_run": {k: v for k, v in seen.items() if k != "descendants"},
+        "workers_exited_after_close": True,
+        "shm_segments_left": 0,
+    }
+
+
+def pool_alone(learner, cfg, device) -> dict:
+    """One pool of half the preset's workers, without the learner: its
+    lockstep step alone (zero actions; 100 steps after 5), and one
+    VectorActor driving it (3 unrolls after 1), as the loop's actor
+    threads do."""
+    from torched_impala_tpu_torch import configs
+    from torched_impala_tpu_torch.runtime.env_pool import ProcessEnvPool
+    from torched_impala_tpu_torch.runtime.vector_actor import VectorActor
+
+    pool = ProcessEnvPool(
+        env_factory=configs.make_env_factory(cfg, fake=True),
+        num_workers=cfg.num_actors // 2, envs_per_worker=cfg.envs_per_actor,
+        obs_shape=cfg.obs_shape, obs_dtype=np.dtype(cfg.obs_dtype),
+    )
+    try:
+        pool.reset_all()
+        actions = np.zeros(pool.num_envs, np.int32)
+        for _ in range(5):
+            pool.step_all(actions)
+        t0 = time.perf_counter()
+        for _ in range(100):
+            pool.step_all(actions)
+        step_ms = (time.perf_counter() - t0) / 100 * 1e3
+        actor = VectorActor(
+            actor_id=0, envs=pool, agent=configs.make_agent(cfg), param_store=learner.param_store,
+            enqueue=[].append, unroll_length=cfg.unroll_length, device=device,
+        )
+        actor.unroll_and_push()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            actor.unroll_and_push()
+        unroll_ms = (time.perf_counter() - t0) / 3 * 1e3
+    finally:
+        pool.close()
+    return {
+        "pool_alone_workers": pool.num_workers,
+        "pool_step_alone_ms": step_ms,
+        "pool_actor_unroll_alone_ms": unroll_ms,
+        "pool_actor_alone_frames_per_s": cfg.unroll_length * pool.num_envs / unroll_ms * 1e3,
+    }
+
+
+class RingProbe:
+    """While installed, pairs the first RING_PROBE_BATCHES ring batches'
+    device copies with a host copy of their slot taken just before the
+    batcher releases it; `check` holds each pair equal. A slot released
+    before its copy completed, and refilled, would differ."""
+
+    def __init__(self):
+        self.open, self.pairs = {}, []
+
+    def __enter__(self):
+        from torched_impala_tpu_torch.runtime import learner, traj_ring
+
+        probe = self
+        self._saved = (learner.Learner._ring_to_device,
+                       traj_ring.TrajectoryRing.release_after_transfer)
+        to_device, release = self._saved
+
+        def ring_to_device(learner_self, tensors):
+            arrays = to_device(learner_self, tensors)
+            if len(probe.pairs) + len(probe.open) < RING_PROBE_BATCHES:
+                probe.open[tensors[0].data_ptr()] = arrays
+            return arrays
+
+        def release_after_transfer(ring_self, slot, event):
+            if event is not None:
+                event.synchronize()
+            tensors = ring_self._slots[slot].tensors
+            arrays = probe.open.pop(tensors.obs.data_ptr(), None)
+            if arrays is not None:
+                host = [t.clone() for t in tensors[:6]]
+                probe.pairs.append((arrays, host))
+            release(ring_self, slot, event)
+
+        learner.Learner._ring_to_device = ring_to_device
+        traj_ring.TrajectoryRing.release_after_transfer = release_after_transfer
+        return self
+
+    def __exit__(self, *exc):
+        from torched_impala_tpu_torch.runtime import learner, traj_ring
+
+        learner.Learner._ring_to_device, traj_ring.TrajectoryRing.release_after_transfer = self._saved
+
+    def check(self) -> int:
+        import torch
+
+        if len(self.pairs) < RING_PROBE_BATCHES:
+            raise AssertionError(f"ring probe: {len(self.pairs)} batches paired")
+        for device_arrays, host in self.pairs:
+            for d, h in zip(device_arrays[:6], host):
+                if not torch.equal(d.cpu(), h.to(d.dtype)):
+                    raise AssertionError("ring: a device batch differs from its slot")
+        return len(self.pairs)
+
+
+def feed_times(learner, cfg, device) -> dict:
+    """The ring's feed against the queue feed, on one Pong batch: the
+    queue feed's np.stack of B unrolls plus its pageable host-to-device
+    copies, against the ring's copies of one pinned slot on a side stream
+    (host clock, each to a synchronize; median of 20 after 3)."""
+    import torch
+
+    from torched_impala_tpu_torch.runtime.learner import stack_trajectories
+    from torched_impala_tpu_torch.runtime.types import Trajectory
+
+    rng = np.random.default_rng(9)
+    T, B, A = cfg.unroll_length, cfg.batch_size, cfg.num_actions
+    trajs = [
+        Trajectory(
+            obs=rng.integers(0, 256, size=(T + 1, 84, 84, 4), dtype=np.uint8),
+            first=np.zeros((T + 1,), np.bool_), actions=np.zeros((T,), np.int32),
+            behaviour_logits=np.zeros((T, A), np.float32), rewards=np.zeros((T,), np.float32),
+            cont=np.ones((T,), np.float32), agent_state=(),
+        )
+        for _ in range(B)
+    ]
+    slot = learner.traj_ring._slots[0].tensors
+    stacked = stack_trajectories(trajs)
+    for dst, src in zip(slot[:6], stacked[:6]):
+        dst.copy_(torch.from_numpy(src))
+    stream = torch.cuda.Stream(device)
+
+    def queue_feed():
+        learner._to_device(stack_trajectories(trajs))
+        torch.cuda.synchronize()
+
+    def ring_feed():
+        with torch.cuda.stream(stream):
+            learner._ring_to_device((*slot[:6], slot.agent_state))
+            event = torch.cuda.Event()
+            event.record(stream)
+        event.synchronize()
+
+    result = {}
+    for key, fn in (("queue_feed_ms", queue_feed), ("ring_feed_ms", ring_feed)):
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        result[key] = statistics.median(times)
+    result["batch_bytes"] = sum(x.nbytes for x in stacked[:6])
+    return result
 
 
 def phase_pong(device):
+    """The PONG preset as configured (32 worker processes in two pools,
+    lockstep, the queue feed), then with the trajectory ring, then 4
+    thread actors x 8 envs; returns the preset run's launches."""
     from torched_impala_tpu_torch import configs
 
-    cfg = dataclasses.replace(
-        configs.PONG, actor_mode="thread", num_actors=4, envs_per_actor=8
+    cfg = configs.PONG
+    assert (cfg.actor_mode, cfg.num_actors, cfg.envs_per_actor, cfg.pool_mode) == (
+        "process", 32, 1, "lockstep"
     )
-    assert cfg.num_actors * cfg.envs_per_actor == cfg.batch_size == 32
-    launches = drive("pong", cfg, PONG_STEPS, device)
-    if launches["vtrace"] < PONG_STEPS:
-        raise AssertionError(f"pong: {launches['vtrace']} vtrace launches < {PONG_STEPS} steps")
-    return launches
+    assert (cfg.unroll_length, cfg.batch_size, cfg.traj_ring) == (20, 32, False)
+
+    def ring_after(result, seen):
+        ring = result.learner.traj_ring
+        pinned = all(t.is_pinned() for s in ring._slots for t in s.tensors[:6])
+        if not pinned:
+            raise AssertionError("pong_ring: ring slots are not pinned host memory")
+        return dict(
+            check_workers("pong_ring", result, seen),
+            ring_slots=ring.num_slots,
+            ring_slots_pinned=pinned,
+            ring_batches_equal_to_their_slots=probe.check(),
+            **feed_times(result.learner, cfg, device),
+        )
+
+    runs = {}
+    runs["pong"] = drive(
+        "pong", cfg, PONG_STEPS, device, standalone=False, at_step5=processes_mid_run,
+        after=lambda r, seen: dict(check_workers("pong", r, seen), **pool_alone(r.learner, cfg, device)),
+    )
+    with RingProbe() as probe:
+        runs["pong_ring"] = drive(
+            "pong_ring", dataclasses.replace(cfg, traj_ring=True), PONG_STEPS, device,
+            standalone=False, at_step5=processes_mid_run, after=ring_after,
+        )
+    thread_cfg = dataclasses.replace(cfg, actor_mode="thread", num_actors=4, envs_per_actor=8)
+    runs["pong_thread"] = drive("pong_thread", thread_cfg, PONG_THREAD_STEPS, device)
+    for name, launches in runs.items():
+        steps = PONG_THREAD_STEPS if name == "pong_thread" else PONG_STEPS
+        if launches["vtrace"] < steps:
+            raise AssertionError(f"{name}: {launches['vtrace']} vtrace launches < {steps} steps")
+    return runs["pong"]
 
 
 def phase_breakout(device, fused):
@@ -1354,23 +1799,66 @@ def phase_pong_transformer(device):
     return launches
 
 
+def stop_children() -> None:
+    """Stop every process this run started: the env pools' forkserver and
+    resource tracker (they outlive the pools), then wait up to 5 s for
+    every descendant to exit. One still alive is killed and fails the run."""
+    env_pool = sys.modules.get("torched_impala_tpu_torch.runtime.env_pool")
+    if env_pool is not None:
+        env_pool.stop_helpers()
+    deadline = time.monotonic() + 5
+    while (left := descendants(os.getpid())) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    for pid in left:
+        try:
+            os.kill(pid, 9)
+            os.waitpid(pid, 0)
+        except (ProcessLookupError, ChildProcessError):
+            pass
+    if left:
+        raise AssertionError(f"processes left running at the end, killed: {left}")
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
         return 2
+    try:
+        kernels, smi = run_phases()
+    finally:
+        stop_children()
+    emit({"kernels": kernels})
+    print(smi, flush=True)
+    emit(
+        {
+            "ok": True,
+            "device": {
+                "platform": "gpu",
+                "kind": torch.cuda.get_device_name(0),
+                "count": torch.cuda.device_count(),
+            },
+        }
+    )
+    return 0
+
+
+def run_phases():
+    """Every phase; returns the kernels line's entries and the card's
+    name and power limit."""
     from torched_impala_tpu_torch import resolve_device
 
     device = resolve_device()
     smi = phase_env()
     sources = phase_build()
-    if sources != ["attention_bwd", "attention_fwd", "fused_loss", "lstm_cell", "resblock", "vtrace"]:
-        raise AssertionError(f"built {sources}, but chip_smoke checks six sources")
+    if sources != ["attention_bwd", "attention_fwd", "attention_wide", "fused_loss", "lstm_cell",
+                   "resblock", "vtrace"]:
+        raise AssertionError(f"built {sources}, but chip_smoke checks seven sources")
     checked = {
         "vtrace": dict(phase_vtrace(device), library_ms=None),
         "lstm_cell": phase_lstm(device),
-        "resblock": phase_resblock(device),
+        **phase_resblock(device),
         **phase_fused_loss(device),
         **phase_attention(device),
     }
@@ -1384,6 +1872,10 @@ def main() -> int:
     transformer_launches = phase_pong_transformer(device)
     for name in ("fused_loss_fwd", "fused_loss_bwd", "attention_fwd", "attention_bwd"):
         launches[name] = transformer_launches[name]
+    # No preset reaches the general kernels' shapes: their main-path count
+    # is what the runs above launched of them.
+    for name in ("resblock_general", "attention_wide_fwd", "attention_wide_bwd"):
+        launches[name] = transformer_launches[name]
     replaces = {
         "vtrace": "torched_impala_tpu/ops/vtrace_pallas.py:92",
         "lstm_cell": "torched_impala_tpu/ops/lstm_pallas.py:78",
@@ -1392,37 +1884,25 @@ def main() -> int:
         "fused_loss_bwd": "torched_impala_tpu/ops/vtrace_pallas.py:384",
         "attention_fwd": "torched_impala_tpu/ops/attention_pallas.py:251",
         "attention_bwd": "torched_impala_tpu/ops/attention_pallas.py:409",
+        "resblock_general": "torched_impala_tpu/ops/conv_pallas.py:76",
+        "attention_wide_fwd": "torched_impala_tpu/ops/attention_pallas.py:251",
+        "attention_wide_bwd": "torched_impala_tpu/ops/attention_pallas.py:409",
     }
-    emit(
+    kernels = [
         {
-            "kernels": [
-                {
-                    "name": name,
-                    "route": "cuda",
-                    "source": f"torched_impala_tpu_torch/csrc/{SOURCES.get(name, name)}.cu",
-                    "replaces": replaces[name],
-                    "launches": launches[name],
-                    **{
-                        k: checked[name][k]
-                        for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-                    },
-                }
-                for name in replaces
-            ]
-        }
-    )
-    print(smi, flush=True)
-    emit(
-        {
-            "ok": True,
-            "device": {
-                "platform": "gpu",
-                "kind": torch.cuda.get_device_name(0),
-                "count": torch.cuda.device_count(),
+            "name": name,
+            "route": "cuda",
+            "source": f"torched_impala_tpu_torch/csrc/{SOURCES.get(name, name)}.cu",
+            "replaces": replaces[name],
+            "launches": launches[name],
+            **{
+                k: checked[name][k]
+                for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
             },
         }
-    )
-    return 0
+        for name in replaces
+    ]
+    return kernels, smi
 
 
 if __name__ == "__main__":

@@ -434,15 +434,12 @@ def test_resblock_bf16_concurrent_learner_and_actor_launches(cuda):
 
 @pytest.mark.gpu
 def test_resblock_bf16_refuses_what_it_does_not_take(cuda, monkeypatch):
-    """No fallback for bf16: a C the kernel does not hold raises, and a
-    launch the launcher refuses (a band whose shared memory is over the
-    ceiling) raises without counting a launch."""
+    """No fallback for bf16: a launch the launcher refuses (a band whose
+    shared memory is over the ceiling) raises without counting a launch."""
     import dataclasses
 
     from torched_impala_tpu_torch.ops import conv_block_cuda
 
-    with pytest.raises(ValueError, match="C <= 80"):
-        conv_block_cuda.resblock_cuda(*_block_inputs(2, 5, 5, 81, torch.bfloat16, 0, cuda))
     args = _block_inputs(2, 9, 9, 16, torch.bfloat16, 0, cuda)
     plan = conv_block_cuda.bf16_launch_plan(2, 9, 9, 16)
     monkeypatch.setattr(
@@ -454,6 +451,39 @@ def test_resblock_bf16_refuses_what_it_does_not_take(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="cudaError"):
         conv_block_cuda.resblock_cuda(*args)
     assert conv_block_cuda.LAUNCHES == before
+
+
+# Shapes past the tuned kernels' shared memory, which take the general
+# kernel: bf16 channels above 80, and f32 where two staged kernels and a
+# one-row band pass 227 KB (C = 48 from W = 42; C = 64 at any W).
+BLOCK_GENERAL_SHAPES = [
+    ((2, 9, 9, 96), torch.bfloat16), ((2, 7, 11, 128), torch.bfloat16),
+    ((2, 5, 42, 48), torch.float32), ((2, 21, 21, 64), torch.float32),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype", BLOCK_GENERAL_SHAPES, ids=str)
+def test_resblock_general_kernel_matches_reference(cuda, shape, dtype):
+    """The general kernel against `block_reference`, at the tolerances of
+    the tuned kernels of the same dtype; one general launch a call, none
+    of the tuned kernels', and two launches bit-identical."""
+    from torched_impala_tpu_torch.ops import conv_block, conv_block_cuda
+
+    assert conv_block_cuda.route(dtype, shape[2], shape[3]) == "general"
+    args = _block_inputs(*shape, dtype, seed=shape[3], device=cuda)
+    before = (conv_block_cuda.LAUNCHES, conv_block_cuda.GENERAL_LAUNCHES)
+    out = conv_block_cuda.resblock_cuda(*args)
+    assert (conv_block_cuda.LAUNCHES, conv_block_cuda.GENERAL_LAUNCHES) == (before[0], before[1] + 1)
+    again = conv_block_cuda.resblock_cuda(*args)
+    ref = conv_block.block_reference(*args)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == shape and torch.equal(out, again)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_ULP, atol=BF16_ULP)
+        assert float((out == ref).float().mean()) >= 0.99
+    else:
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.gpu
@@ -767,6 +797,30 @@ def test_attention_kernels_match_reference_at_any_head_width(cuda, dh, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("dh", [257, 320, 512])
+def test_attention_wide_kernels_match_reference(cuda, dh, dtype):
+    """Head widths past MAX_HEAD_DIM run on the general kernels of
+    csrc/attention_wide.cu, at the tiled kernels' tolerances, on episodic
+    data with a partly foreign cache; one wide launch each way, none of
+    the tiled kernels', and two launches bit-identical."""
+    from torched_impala_tpu_torch.ops import attention, attention_cuda
+
+    before = (dict(attention_cuda.LAUNCHES), dict(attention_cuda.WIDE_LAUNCHES))
+    args = _attn_inputs(2, 21, 2, dh, 19, seed=dh, device=cuda, dtype=dtype)
+    _attention_vs_plain(args, bf16=dtype == torch.bfloat16)
+    assert attention_cuda.LAUNCHES == before[0]
+    assert {k: v - before[1][k] for k, v in attention_cuda.WIDE_LAUNCHES.items()} == {"fwd": 1, "bwd": 1}
+    q, k, v, seg_q, seg_ctx, W, g = args
+    out, lse = attention.windowed_attention_reference(q, k, v, seg_q, seg_ctx, W)
+    bwd = (q, k, v, g, out, lse, seg_q, seg_ctx, W)
+    for fn, fn_args in ((attention_cuda.attention_forward_cuda, args[:6]),
+                        (attention_cuda.attention_backward_cuda, bwd)):
+        first, again = fn(*fn_args), fn(*fn_args)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.gpu
 def test_attention_autograd_through_kernels(cuda):
     from torched_impala_tpu_torch.ops import attention, attention_cuda
 
@@ -977,9 +1031,6 @@ def test_attention_and_fused_loss_wrappers_refuse_bad_inputs_on_cuda(cuda):
     from torched_impala_tpu_torch.ops import attention_cuda, fused_loss_cuda
 
     q, k, v, seg_q, seg_ctx, W, g = _attn_inputs(2, 5, 2, 16, 3, seed=0, device=cuda)
-    wide = _attn_inputs(2, 5, 2, attention_cuda.MAX_HEAD_DIM + 1, 3, seed=0, device=cuda)
-    with pytest.raises(ValueError, match="head width 257 above the kernels' limit of 256"):
-        attention_cuda.attention_forward_cuda(*wide[:6])
     with pytest.raises(ValueError, match="int32"):
         attention_cuda.attention_forward_cuda(q, k, v, seg_q.long(), seg_ctx, W)
     with pytest.raises(ValueError, match="float32"):
@@ -1009,6 +1060,57 @@ def test_attention_and_fused_loss_wrappers_refuse_bad_inputs_on_cuda(cuda):
         fused_loss_cuda.fused_loss_bwd(*bwd[:8], bwd[8][None], *bwd[9:])
 
 
+def _ring_feed_batches(device, use_ring, batches=5, T=5, E=2, B=4):
+    """`batches` device batches of the learner's batcher, fed by a thread
+    actor over scripted envs, moved to the host."""
+    import dataclasses
+
+    from torched_impala_tpu_torch import configs
+    from torched_impala_tpu_torch.envs.fake import ScriptedEnv
+    from torched_impala_tpu_torch.runtime.learner import Learner
+    from torched_impala_tpu_torch.runtime.vector_actor import VectorActor
+
+    cfg = dataclasses.replace(configs.CARTPOLE, use_lstm=True, lstm_size=8,
+                              unroll_length=T, batch_size=B, traj_ring=use_ring)
+    agent = configs.make_agent(cfg, seed=2)
+    learner = Learner(agent=agent, optimizer=configs.make_optimizer(cfg),
+                      config=configs.make_learner_config(cfg), device=device,
+                      example_obs=np.zeros((4,), np.float32))
+    actor = VectorActor(actor_id=0, envs=[ScriptedEnv(episode_len=4) for _ in range(E)],
+                        agent=agent, param_store=learner.param_store, enqueue=learner.enqueue,
+                        unroll_length=T, device=device, seed=3, traj_ring=learner.traj_ring)
+    learner.start()
+    out = []
+    try:
+        for _ in range(batches):
+            for _ in range(B // E):
+                actor.unroll_and_push()
+            arrays, version, event = learner._batch_q.get(timeout=60)
+            assert (event is not None) == use_ring
+            if event is not None:
+                event.synchronize()
+            out.append([t.cpu() for t in (*arrays[:6], *arrays[6])])
+    finally:
+        learner.stop()
+        learner.join()
+    if use_ring:
+        ring = learner.traj_ring
+        assert all(t.is_pinned() for slot in ring._slots for t in slot.tensors[:6])
+    return out
+
+
+@pytest.mark.gpu
+def test_ring_feed_on_the_card_equals_queue_feed(cuda):
+    """The ring's side-stream copies of pinned slots give the queue feed's
+    batches bit for bit, over more batches than slots (each slot
+    recycles only after its copy's event)."""
+    queue_batches = _ring_feed_batches(cuda, use_ring=False)
+    ring_batches = _ring_feed_batches(cuda, use_ring=True)
+    for bq, br in zip(queue_batches, ring_batches, strict=True):
+        for a, b in zip(bq, br, strict=True):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
 def test_wrappers_refuse_cpu_tensors():
     """No fallback in a wrapper: a CPU tensor raises before any build."""
     from torched_impala_tpu_torch.ops import (
@@ -1035,17 +1137,25 @@ def test_wrappers_refuse_cpu_tensors():
 
 
 def test_attention_wrappers_refuse_heads_above_the_limit():
-    """Every head width up to MAX_HEAD_DIM runs; a wider one raises before
-    any build, naming the limit, on any device."""
+    """Every head width up to MAX_HEAD_DIM takes the tiled kernels; a wider
+    one picks the general kernels' plan on any device, without a build,
+    and only a row past their shared memory is refused. A CPU tensor of
+    any width still raises before a build."""
     from torched_impala_tpu_torch.ops import attention, attention_cuda
 
     assert attention_cuda.MAX_HEAD_DIM == 256
+    assert not attention_cuda.takes_wide(256) and attention_cuda.takes_wide(257)
+    smem = attention_cuda.wide_smem_bytes(257)
+    assert smem == {"fwd": 32 + 8 * 257, "dq": 32 + 12 * 257, "dkv": 32 + 16 * 257}
+    widest = (attention_cuda.SMEM_CEILING - 32) // 16
+    assert attention_cuda.wide_smem_bytes(widest)["dkv"] <= attention_cuda.SMEM_CEILING
+    with pytest.raises(ValueError, match="does not fit"):
+        attention_cuda._check_wide("attention_wide_bwd", widest + 1)
     q, k, v, seg_q, seg_ctx, W, g = _attn_inputs(2, 5, 2, 257, 3, seed=0, device="cpu")
     out, lse = attention.windowed_attention_reference(q, k, v, seg_q, seg_ctx, W)
-    match = "head width 257 above the kernels' limit of 256"
-    with pytest.raises(ValueError, match=match):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         attention_cuda.attention_forward_cuda(q, k, v, seg_q, seg_ctx, W)
-    with pytest.raises(ValueError, match=match):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         attention_cuda.attention_backward_cuda(q, k, v, g, out, lse, seg_q, seg_ctx, W)
 
 

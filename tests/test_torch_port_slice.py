@@ -3,7 +3,9 @@
 - `loop.train` with the PONG preset (84x84x4 uint8, Nature-CNN, bf16
   torso), fake envs, 2 thread actors x 2 envs, T=4, B=4, 3 learner steps:
   finite loss, params moved, and the plain V-trace taken (no kernel);
-- the CLI returns 0;
+- the CLI returns 0 (the process-mode example runs in
+  tests/test_torch_port_env_pool.py);
+- the paths not ported yet raise, naming their ROADMAP items;
 - an AST scan: nothing under torched_impala_tpu_torch/, nor chip_smoke.py,
   imports JAX, flax, optax, chex or the JAX package;
 - without CUDA, `resolve_device()` raises instead of returning the CPU.
@@ -95,10 +97,14 @@ def test_cli_returns_zero(capsys):
 
 
 def test_unported_paths_raise():
+    """Each path not ported yet raises, naming its ROADMAP item by title."""
+    from torched_impala_tpu_torch.runtime.traj_ring import TrajectoryRing
+
     cfg = _small_pong()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1: Real envs"):
         configs.make_env_factory(cfg, fake=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # Process actors are ported; the pool's ready-fraction tuner is not.
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1: Observability, perf and control"):
         loop.train(
             agent=configs.make_agent(cfg),
             env_factory=configs.make_env_factory(cfg, fake=True),
@@ -107,8 +113,16 @@ def test_unported_paths_raise():
             optimizer=configs.make_optimizer(cfg),
             total_steps=1,
             actor_mode="process",
+            pool_mode="async",
+            pool_ready_fraction="auto",
             device="cpu",
         )
+    ring = dict(num_slots=2, unroll_length=2, batch_size=2,
+                example_obs=np.zeros((4,), np.float32), num_actions=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1: Replay"):
+        TrajectoryRing(**ring, max_reuse=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1: The learner step's launches"):
+        TrajectoryRing(**ring, superbatch_k=2)
     from torched_impala_tpu_torch.models.nets import ImpalaNet
     from torched_impala_tpu_torch.models.torsos import MLPTorso
 

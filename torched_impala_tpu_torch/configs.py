@@ -58,7 +58,15 @@ class ExperimentConfig:
     fused_epilogue: bool = False
     num_actors: int = 4
     envs_per_actor: int = 1
-    actor_mode: str = "thread"
+    actor_mode: str = "thread"  # thread | process (runtime/env_pool.py)
+    # Process-pool scheduling (actor_mode="process" only): "lockstep"
+    # waits for every worker each step; "async" runs inference over
+    # whichever `pool_ready_fraction` of the workers has answered.
+    pool_mode: str = "lockstep"
+    pool_ready_fraction: float = 0.5
+    # Actors write unrolls straight into the learner's batch slots
+    # (runtime/traj_ring.py); env counts must divide batch_size.
+    traj_ring: bool = False
     unroll_length: int = 20
     batch_size: int = 8
     total_env_frames: int = 1_000_000
@@ -240,6 +248,7 @@ def make_learner_config(cfg: ExperimentConfig) -> LearnerConfig:
             fused_epilogue=cfg.fused_epilogue,
         ),
         max_grad_norm=cfg.max_grad_norm,
+        traj_ring=cfg.traj_ring,
     )
 
 
@@ -286,6 +295,7 @@ def make_env_factory(
     if not fake:
         raise NotImplementedError(
             "real environments are not ported yet; pass fake=True "
-            "(--fake-envs) (ROADMAP.md queue 1, item 4)"
+            "(--fake-envs) (ROADMAP.md queue 1: Real envs and the rest of the "
+            "CartPole path)"
         )
     return _EnvFactory(cfg)

@@ -67,6 +67,24 @@
 // computes one (pixel, output channel) at a time as 9 x C fused
 // multiply-adds out of shared memory (the f32 products stay f32, as the
 // JAX function computes them; TF32 would miss the f32 gate).
+//
+// Past both kernels' shared memory: `resblock_general_conv_kernel<T,
+// kSecond>`, a simple CUDA-core kernel for either type, in two launches
+// and a scratch y1 of x's type. The two kernels above stage a conv's
+// whole [3, 3, C, C] kernel (and a band of rows) in shared memory, which
+// caps them: bf16 at C = 80 (or a one-row band too wide), f32 where two
+// staged kernels and a one-row band pass 227 KB (C = 48 from W = 42, any W
+// from C = 57). The wrapper routes such shapes here before launch
+// (ops/conv_block_cuda.py:route). One thread computes one (pixel, output
+// channel) as 9 x C fused multiply-adds, reading x (or y1) and the
+// weights through L1/L2: a warp's 32 output channels read one input
+// pixel's channels as a broadcast and 32 neighbouring weights. The first
+// launch writes y1 = relu(conv1(relu(x)) + b1) rounded to x's type, the
+// second out = x + (conv2(y1) + b2), rounded once, with the numerics of
+// the kernels above (operands in x's type, f32 sums). Bound: each launch
+// reads its input and writes its output once, and does 2 x 9 x C x C
+// operations a pixel on the CUDA cores; it is the kernel that is right
+// for widths no preset uses, and its times stand in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -666,9 +684,83 @@ int launch_bf16(const __nv_bfloat16* x, const float* k1, const float* b1,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------
+// Either type, any shape: the general kernel in two launches.
+
+constexpr int kGeneralThreads = 256;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v) {
+  if constexpr (sizeof(T) == 2) {
+    return __float2bfloat16(v);
+  } else {
+    return v;
+  }
+}
+
+// kSecond = false: out = y1 = relu(conv1(relu(in)) + b) in T, in = x.
+// kSecond = true: out = x + (conv2(in) + b) in T, in = y1.
+template <typename T, bool kSecond>
+__global__ void __launch_bounds__(kGeneralThreads)
+    resblock_general_conv_kernel(const T* __restrict__ x, const T* __restrict__ in,
+                                 const float* __restrict__ k, const float* __restrict__ b,
+                                 T* __restrict__ out, int H, int W, int C, long total) {
+  const long i = static_cast<long>(blockIdx.x) * kGeneralThreads + threadIdx.x;
+  if (i >= total) return;
+  const int co = static_cast<int>(i % C);
+  const long pix = i / C;
+  const int col = static_cast<int>(pix % W);
+  const int row = static_cast<int>((pix / W) % H);
+  const long img = pix / (static_cast<long>(W) * H);
+  float acc = 0.0f;
+  for (int dy = 0; dy < 3; ++dy) {
+    const int r = row + dy - 1;
+    if (r < 0 || r >= H) continue;
+    for (int dx = 0; dx < 3; ++dx) {
+      const int c = col + dx - 1;
+      if (c < 0 || c >= W) continue;
+      const T* src = in + ((img * H + r) * W + c) * C;
+      const float* w = k + (dy * 3 + dx) * static_cast<long>(C) * C + co;
+      for (int ci = 0; ci < C; ++ci) {
+        float a = to_f32(src[ci]);
+        if (!kSecond) a = relu(a);
+        // The weight rounded to x's type, as the tuned kernels stage it.
+        const float wv = to_f32(from_f32<T>(w[static_cast<long>(ci) * C]));
+        acc = fmaf(a, wv, acc);
+      }
+    }
+  }
+  if (kSecond) {
+    out[i] = from_f32<T>(__fadd_rn(to_f32(x[i]), __fadd_rn(acc, b[co])));
+  } else {
+    out[i] = from_f32<T>(relu(__fadd_rn(acc, b[co])));
+  }
+}
+
+template <typename T>
+int launch_general(const void* x, const float* k1, const float* b1, const float* k2,
+                   const float* b2, void* out, void* y1, int N, int H, int W, int C,
+                   cudaStream_t stream) {
+  const long total = static_cast<long>(N) * H * W * C;
+  const long blocks = (total + kGeneralThreads - 1) / kGeneralThreads;
+  if (blocks > 0x7FFFFFFFL) return static_cast<int>(cudaErrorInvalidValue);
+  const T* xt = static_cast<const T*>(x);
+  T* yt = static_cast<T*>(y1);
+  resblock_general_conv_kernel<T, false><<<blocks, kGeneralThreads, 0, stream>>>(
+      xt, xt, k1, b1, yt, H, W, C, total);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  resblock_general_conv_kernel<T, true><<<blocks, kGeneralThreads, 0, stream>>>(
+      xt, yt, k2, b2, static_cast<T*>(out), H, W, C, total);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Both entry points launch on `stream` (PyTorch's current stream) on
+// Every entry point launches on `stream` (PyTorch's current stream) on
 // `device` and return cudaGetLastError(), or cudaErrorInvalidValue for a
 // shape the kernel does not take, so a refused launch reaches the caller.
 
@@ -705,4 +797,17 @@ extern "C" int resblock_bf16_launch(const void* x, const float* k1,
     case 80: return launch_bf16<80>(xb, k1, b1, k2, b2, ob, N, H, W, C, R, blocks, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// x, out and the scratch y1 [N, H, W, C] of x's type (bfloat16 where
+// is_bf16, else float32): the general kernel, any C and W, two launches.
+extern "C" int resblock_general_launch(const void* x, const float* k1, const float* b1,
+                                       const float* k2, const float* b2, void* out, void* y1,
+                                       int N, int H, int W, int C, int is_bf16, int device,
+                                       void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch_general<__nv_bfloat16>(x, k1, b1, k2, b2, out, y1, N, H, W, C, s)
+                 : launch_general<float>(x, k1, b1, k2, b2, out, y1, N, H, W, C, s);
 }

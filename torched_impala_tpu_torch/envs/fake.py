@@ -114,3 +114,41 @@ class FakeDiscreteEnv:
             self._t = 0
         reward = float(self._rng.normal()) * self._reward_scale
         return self._obs(), reward, terminated, False, {}
+
+
+class CrashingFactory:
+    """Picklable env factory that wraps another factory's envs in
+    `CrashingEnv`: a fault for the env pool's restart path."""
+
+    def __init__(self, inner, crash_after: int):
+        self.inner = inner
+        self.crash_after = crash_after
+
+    def __call__(self, seed: int, env_index=None):
+        from torched_impala_tpu_torch.envs.factory import call_env_factory
+
+        env = call_env_factory(self.inner, seed, env_index)
+        return CrashingEnv(env, crash_after=self.crash_after)
+
+
+class CrashingEnv:
+    """Wraps another env and raises after `crash_after` total steps; each
+    fresh instance crashes again after its own `crash_after` steps."""
+
+    def __init__(self, inner, crash_after: int):
+        self._inner = inner
+        self._crash_after = crash_after
+        self._steps = 0
+
+    @property
+    def action_space_n(self) -> int:
+        return self._inner.action_space_n
+
+    def reset(self, seed=None):
+        return self._inner.reset(seed=seed)
+
+    def step(self, action):
+        self._steps += 1
+        if self._steps >= self._crash_after:
+            raise RuntimeError(f"chaos: env crashed after {self._steps} steps")
+        return self._inner.step(action)

@@ -21,8 +21,9 @@ Attention runs one of two branches (`dense_kernel`): "einsum", the JAX
 package's einsum branch in plain PyTorch products, or "kernel" (also
 spelled "pallas", the JAX package's name), the windowed flash attention
 of `ops/attention.py` (the hand-written CUDA kernels on the card, their
-plain versions on the CPU). Every head width up to 256 runs on the
-kernels (`ops/attention_cuda.py:MAX_HEAD_DIM`). Step mode always
+plain versions on the CPU). Every head width runs on the kernels: up
+to 256 on the tiled ones (`ops/attention_cuda.py:MAX_HEAD_DIM`), wider
+on the general ones of `csrc/attention_wide.cu`. Step mode always
 takes the einsum branch, as in JAX. The two branches agree where every
 query sees at least itself, which the core guarantees.
 

@@ -1,5 +1,6 @@
 """Wrappers of the hand-written windowed-attention CUDA kernels
-(`csrc/attention_fwd.cu`, `csrc/attention_bwd.cu`).
+(`csrc/attention_fwd.cu`, `csrc/attention_bwd.cu`, and
+`csrc/attention_wide.cu` for head widths above MAX_HEAD_DIM).
 
 Replace the Pallas TPU kernels of `torched_impala_tpu/ops/attention_pallas.py`:
 `_forward` (kernel `_fwd_kernel`) and `_bwd_pallas` (both of its calls,
@@ -15,11 +16,15 @@ The wrappers check their inputs, allocate the outputs (and the
 backward's dQ scratch) and launch on PyTorch's current stream; neither
 launches a PyTorch kernel of its own. They have no fallback: a CPU
 tensor, a dtype other than float32 or bfloat16 (int32 for the segments,
-float32 for the saved output and lse), a head width above MAX_HEAD_DIM,
-a non-contiguous tensor, a failed build or a refused launch raises.
-Every head width from 1 to MAX_HEAD_DIM runs: the kernels are built at
-padded widths and take the true one at run time. `LAUNCHES` counts each
-wrapper's calls in this process: "fwd" and "bwd".
+float32 for the saved output and lse), a non-contiguous tensor, a failed
+build or a refused launch raises. Every head width from 1 to
+MAX_HEAD_DIM runs on the tiled tensor-core kernels: they are built at
+padded widths and take the true one at run time. A wider head
+(`takes_wide`) runs on the simple general kernels of
+`csrc/attention_wide.cu`, one block a row, whose row vectors live in
+shared memory (`wide_smem_bytes`); past what those rows fit it raises.
+`LAUNCHES` counts the tiled wrappers' calls in this process ("fwd" and
+"bwd"), `WIDE_LAUNCHES` the general kernels' ("fwd" and "bwd").
 """
 
 from __future__ import annotations
@@ -32,8 +37,14 @@ from torched_impala_tpu_torch.ops import _build
 from torched_impala_tpu_torch.ops._build import check_input
 
 LAUNCHES = {"fwd": 0, "bwd": 0}
-# The widest instantiation (csrc/attention_common.cuh); wider heads raise.
+WIDE_LAUNCHES = {"fwd": 0, "bwd": 0}
+# The widest instantiation of the tiled kernels (csrc/attention_common.cuh);
+# wider heads take the general kernels of csrc/attention_wide.cu.
 MAX_HEAD_DIM = 256
+# The general kernels' block (csrc/attention_wide.cu:kThreads) and the
+# shared memory a block may use.
+WIDE_THREADS = 128
+SMEM_CEILING = 232448
 # The forward's tiles (csrc/attention_fwd.cu): a warp owns FWD_ROWS query
 # rows and takes FWD_ROWS context slots a step; a block has at most
 # FWD_MAX_WARPS warps, key_warps x query_groups x max(1, DP / 64), and
@@ -55,6 +66,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "attention_fwd": {"attention_fwd_plan_launch": [_P] * 7 + [_I] * 8 + [_F, _I, _I, _P]},
     "attention_bwd": {"attention_bwd_launch": [_P] * 12 + [_I] * 8 + [_F, _I, _I, _P]},
+    "attention_wide": {
+        "attention_wide_fwd_launch": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
+        "attention_wide_bwd_launch": [_P] * 12 + [_I] * 6 + [_F, _I, _I, _P],
+    },
 }
 
 
@@ -78,8 +93,6 @@ def _check(kernel: str, q, k_ctx, v_ctx, seg_q, seg_ctx, W: int):
         )
     B, T, H, dh = q.shape
     S = k_ctx.shape[1]
-    if dh > MAX_HEAD_DIM:
-        raise ValueError(f"{kernel}: head width {dh} above the kernels' limit of {MAX_HEAD_DIM}")
     if not 0 <= W <= S:
         raise ValueError(f"{kernel}: W={W} outside [0, S={S}]")
     device = q.device
@@ -92,6 +105,28 @@ def _check(kernel: str, q, k_ctx, v_ctx, seg_q, seg_ctx, W: int):
     ):
         check_input(kernel, name, t, shape, dtypes, device)
     return B, T, S, H, dh, int(q.dtype == torch.bfloat16)
+
+
+def takes_wide(dh: int) -> bool:
+    """Whether head width `dh` runs on the general kernels of
+    csrc/attention_wide.cu (past the tiled kernels' MAX_HEAD_DIM)."""
+    return dh > MAX_HEAD_DIM
+
+
+def wide_smem_bytes(dh: int) -> dict[str, int]:
+    """Shared memory of each general kernel's block at head width `dh`:
+    the block sums' warp pairs, then the row vectors it keeps (forward: q
+    and the accumulator; dq: q, dO and dq; dk/dv: k, v, dk and dv)."""
+    pairs = WIDE_THREADS // 32 * 8
+    return {"fwd": pairs + 2 * 4 * dh, "dq": pairs + 3 * 4 * dh, "dkv": pairs + 4 * 4 * dh}
+
+
+def _check_wide(kernel: str, dh: int) -> None:
+    if max(wide_smem_bytes(dh).values()) > SMEM_CEILING:
+        raise ValueError(
+            f"{kernel}: head width {dh} does not fit the general kernels' shared "
+            f"memory ({max(wide_smem_bytes(dh).values())} > {SMEM_CEILING} bytes)"
+        )
 
 
 def _stream(device):
@@ -120,6 +155,8 @@ def attention_forward_cuda(q, k_ctx, v_ctx, seg_q, seg_ctx, W: int):
     `windowed_attention_reference`."""
     B, T, S, H, dh, bf16 = _check("attention_fwd", q, k_ctx, v_ctx, seg_q, seg_ctx, W)
     device = q.device
+    if takes_wide(dh):
+        return _wide_forward(q, k_ctx, v_ctx, seg_q, seg_ctx, W, B, T, S, H, dh, bf16)
     key_warps, query_groups = fwd_tiles(T, S, dh)
     out = torch.empty((B, T, H, dh), dtype=torch.float32, device=device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=device)
@@ -160,6 +197,8 @@ def attention_backward_cuda(q, k_ctx, v_ctx, g, o, lse, seg_q, seg_ctx, W: int):
     check_input(kernel, "g", g, (B, T, H, dh), (q.dtype,), device)
     check_input(kernel, "o", o, (B, T, H, dh), (torch.float32,), device)
     check_input(kernel, "lse", lse, (B, H, T), (torch.float32,), device)
+    if takes_wide(dh):
+        return _wide_backward(q, k_ctx, v_ctx, g, o, lse, seg_q, seg_ctx, W, B, T, S, H, dh, bf16)
     key_warps, query_groups = bwd_tiles(S, dh)
     tiles = -(-S // (BWD_ROWS * key_warps))
     dq = torch.empty((B, T, H, dh), dtype=torch.float32, device=device)
@@ -174,4 +213,40 @@ def attention_backward_cuda(q, k_ctx, v_ctx, g, o, lse, seg_q, seg_ctx, W: int):
     if rc != 0:
         raise RuntimeError(f"{kernel}: kernel launch failed with cudaError {rc}")
     LAUNCHES["bwd"] += 1
+    return dq, dk, dv
+
+
+def _wide_forward(q, k_ctx, v_ctx, seg_q, seg_ctx, W, B, T, S, H, dh, bf16):
+    """The forward on csrc/attention_wide.cu: one block a query row."""
+    kernel = "attention_wide_fwd"
+    _check_wide(kernel, dh)
+    device = q.device
+    out = torch.empty((B, T, H, dh), dtype=torch.float32, device=device)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=device)
+    rc = _library("attention_wide").attention_wide_fwd_launch(
+        *(t.data_ptr() for t in (q, k_ctx, v_ctx, seg_q, seg_ctx, out, lse)),
+        B, T, S, H, dh, W, 1.0 / dh**0.5, bf16, device.index, _stream(device),
+    )
+    if rc != 0:
+        raise RuntimeError(f"{kernel}: kernel launch failed with cudaError {rc}")
+    WIDE_LAUNCHES["fwd"] += 1
+    return out, lse
+
+
+def _wide_backward(q, k_ctx, v_ctx, g, o, lse, seg_q, seg_ctx, W, B, T, S, H, dh, bf16):
+    """The backward on csrc/attention_wide.cu: dq (and D, into a scratch)
+    one block a query row, then dk and dv one block a context slot."""
+    kernel = "attention_wide_bwd"
+    _check_wide(kernel, dh)
+    device = q.device
+    dq = torch.empty((B, T, H, dh), dtype=torch.float32, device=device)
+    dk, dv = (torch.empty((B, S, H, dh), dtype=torch.float32, device=device) for _ in range(2))
+    dcap = torch.empty((B, H, T), dtype=torch.float32, device=device)
+    rc = _library("attention_wide").attention_wide_bwd_launch(
+        *(t.data_ptr() for t in (q, k_ctx, v_ctx, g, o, lse, seg_q, seg_ctx, dq, dk, dv, dcap)),
+        B, T, S, H, dh, W, 1.0 / dh**0.5, bf16, device.index, _stream(device),
+    )
+    if rc != 0:
+        raise RuntimeError(f"{kernel}: kernel launch failed with cudaError {rc}")
+    WIDE_LAUNCHES["bwd"] += 1
     return dq, dk, dv

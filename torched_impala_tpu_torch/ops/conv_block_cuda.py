@@ -10,11 +10,15 @@ or bf16; k1, k2 HWIO `[3, 3, C, C]` and b1, b2 `[C]`, all f32 (the
 kernels round the kernels to x's dtype as they stage them). x's dtype
 picks the kernel: bf16 runs the wgmma implicit GEMM on the tensor cores,
 launched by `bf16_launch_plan`; f32 runs the CUDA-core kernel, whose f32
-products keep the JAX function's f32 numbers. It checks its inputs,
+products keep the JAX function's f32 numbers. Both stage a conv's whole
+kernel in shared memory; a shape past what that holds (`route`) runs the
+general kernel of the same source instead, in two launches and a scratch
+of x's dtype, for either dtype and any C and W. It checks its inputs,
 allocates the output and launches on PyTorch's current stream. It has no
 fallback: a CPU, wrongly typed or non-contiguous tensor, a wrong shape, a
-shape the kernel does not take, a failed build or a refused launch
-raises. `LAUNCHES` counts the launches this process made.
+failed build or a refused launch raises. `LAUNCHES` counts the tuned
+kernels' launches this process made, `GENERAL_LAUNCHES` the general
+kernel's (one a block, for its two launches).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from torched_impala_tpu_torch.ops import _build
 from torched_impala_tpu_torch.ops._build import check_input
 
 LAUNCHES = 0
+GENERAL_LAUNCHES = 0
 
 SMEM_CEILING = 227 * 1024  # bytes a block may use; every launch sets it
 SM_SMEM = 228 * 1024  # shared memory of one SM
@@ -42,6 +47,7 @@ MAX_CHANNELS = 80
 
 _F32_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _BF16_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_GENERAL_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,11 +115,32 @@ def bf16_launch_plan(N: int, H: int, W: int, C: int) -> LaunchPlan:
     )
 
 
+def f32_smem_bytes(rows: int, W: int, C: int) -> int:
+    """Shared memory of the f32 kernel's block at band height `rows`
+    (`csrc/resblock.cu:launch_f32`): both [3, 3, C, C] kernels, the input
+    band (rows + 4) x (W + 2) and the intermediate (rows + 2) x (W + 2),
+    all f32."""
+    return (2 * 9 * C * C + (2 * rows + 6) * (W + 2) * C) * 4
+
+
+def route(dtype: torch.dtype, W: int, C: int) -> str:
+    """The kernel that takes an [N, H, W, C] block of `dtype`: "bf16" (the
+    wgmma kernel) or "f32" (the CUDA-core kernel) where a band of one row
+    and the conv kernels they stage fit a block's shared memory, else
+    "general"."""
+    if dtype == torch.bfloat16:
+        channels = -(-C // 16) * 16
+        fits = channels <= MAX_CHANNELS and bf16_smem_bytes(1, W, channels) <= SMEM_CEILING
+        return "bf16" if fits else "general"
+    return "f32" if f32_smem_bytes(1, W, C) <= SMEM_CEILING else "general"
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.load("resblock")
     for fn, argtypes in (
         (lib.resblock_f32_launch, _F32_ARGTYPES),
         (lib.resblock_bf16_launch, _BF16_ARGTYPES),
+        (lib.resblock_general_launch, _GENERAL_ARGTYPES),
     ):
         if fn.argtypes is None:
             fn.argtypes = argtypes
@@ -123,7 +150,7 @@ def _library() -> ctypes.CDLL:
 
 def resblock_cuda(x, k1, b1, k2, b2):
     """The residual block on the card. Same contract as `block_reference`."""
-    global LAUNCHES
+    global LAUNCHES, GENERAL_LAUNCHES
     if x.dim() != 4 or min(x.shape) < 1:
         raise ValueError(
             f"resblock_cuda: x must be a non-empty NHWC [N, H, W, C], got "
@@ -146,7 +173,14 @@ def resblock_cuda(x, k1, b1, k2, b2):
     pointers = [t.data_ptr() for t in (x, k1, b1, k2, b2, out)]
     stream = torch.cuda.current_stream(device).cuda_stream
     lib = _library()
-    if x.dtype == torch.bfloat16:
+    kernel = route(x.dtype, W, C)
+    if kernel == "general":
+        y1 = torch.empty_like(x)
+        rc = lib.resblock_general_launch(
+            *pointers, y1.data_ptr(), N, H, W, C, int(x.dtype == torch.bfloat16),
+            device.index, stream,
+        )
+    elif kernel == "bf16":
         plan = bf16_launch_plan(N, H, W, C)
         rc = lib.resblock_bf16_launch(
             *pointers, N, H, W, C, plan.rows, plan.blocks, device.index, stream,
@@ -155,5 +189,8 @@ def resblock_cuda(x, k1, b1, k2, b2):
         rc = lib.resblock_f32_launch(*pointers, N, H, W, C, device.index, stream)
     if rc != 0:
         raise RuntimeError(f"resblock_cuda: kernel launch failed with cudaError {rc}")
-    LAUNCHES += 1
+    if kernel == "general":
+        GENERAL_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return out

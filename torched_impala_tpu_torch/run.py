@@ -1,6 +1,8 @@
 """Training CLI of the port (counterpart of `torched_impala_tpu/run.py`,
-train mode with thread actors and fake envs only).
+train mode with fake envs only).
 
+    python -m torched_impala_tpu_torch.run --config pong --fake-envs \\
+        --total-steps 100 [--traj-ring] [--device cpu]
     python -m torched_impala_tpu_torch.run --config pong --fake-envs \\
         --actor-mode thread --num-actors 4 --envs-per-actor 8 \\
         --total-steps 100 [--device cpu]
@@ -28,6 +30,10 @@ from torched_impala_tpu_torch import configs
 from torched_impala_tpu_torch.runtime.loop import train
 
 # The CPU runs README.md documents; the tests run them as written.
+PROCESS_CPU_EXAMPLE = (
+    "--config pong --fake-envs --num-actors 2 --batch-size 4 --unroll-length 4 "
+    "--total-steps 3 --traj-ring --device cpu"
+)
 CPU_EXAMPLE = (
     "--config pong --fake-envs --actor-mode thread --num-actors 2 "
     "--envs-per-actor 2 --batch-size 4 --unroll-length 4 --total-steps 3 "
@@ -46,6 +52,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--fake-envs", action="store_true",
                    help="shape-faithful fake envs (the only envs ported)")
     p.add_argument("--actor-mode", choices=("thread", "process"), default=None)
+    p.add_argument("--pool-mode", choices=("lockstep", "async"), default=None,
+                   help="process actors: wait for every worker each step, or "
+                   "run inference over the ready fraction")
+    p.add_argument("--pool-ready-fraction", type=float, default=None,
+                   help="async pools: the share of workers a wave waits for")
+    p.add_argument("--traj-ring", action="store_true",
+                   help="actors write unrolls straight into the learner's "
+                   "batch slots (runtime/traj_ring.py)")
     p.add_argument("--num-actors", type=int, default=None)
     p.add_argument("--envs-per-actor", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None)
@@ -71,6 +85,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 def build_config(args: argparse.Namespace) -> configs.ExperimentConfig:
     overrides = {
         "actor_mode": args.actor_mode,
+        "pool_mode": args.pool_mode,
+        "pool_ready_fraction": args.pool_ready_fraction,
+        "traj_ring": args.traj_ring or None,
         "num_actors": args.num_actors,
         "envs_per_actor": args.envs_per_actor,
         "batch_size": args.batch_size,
@@ -101,6 +118,8 @@ def main(argv=None) -> int:
         num_actors=cfg.num_actors,
         envs_per_actor=cfg.envs_per_actor,
         actor_mode=cfg.actor_mode,
+        pool_mode=cfg.pool_mode,
+        pool_ready_fraction=cfg.pool_ready_fraction,
         learner_config=configs.make_learner_config(cfg),
         optimizer=configs.make_optimizer(cfg),
         total_steps=args.total_steps,

@@ -1,11 +1,15 @@
 """The learner: batcher thread, SGD step, param publication (counterpart of
-`torched_impala_tpu/runtime/learner.py:Learner` on its single-device,
-queue-fed path).
+`torched_impala_tpu/runtime/learner.py:Learner` on its single-device
+path).
 
-Actors `enqueue` single-env `Trajectory`s; a batcher thread collects B of
-them, stacks them time-major (`stack_trajectories`), moves the batch to
-the learner's device and hands it over through a bounded queue (double
-buffering). `step_once` takes one batch and one SGD step:
+Two feeds. The queue feed: actors `enqueue` single-env `Trajectory`s; a
+batcher thread collects B of them, stacks them time-major
+(`stack_trajectories`), moves the batch to the learner's device and hands
+it over through a bounded queue (double buffering). The ring feed
+(`LearnerConfig.traj_ring`): actors write their unrolls straight into the
+batch slots of a `TrajectoryRing`, and the batcher copies each completed
+slot to the device as it is (`_ring_batcher_loop`). `step_once` takes one
+batch and one SGD step:
 
     unroll the net over [T+1, B] from the batch's start state ->
     impala_loss (V-trace on the device: the CUDA kernel on the card; with
@@ -21,6 +25,7 @@ and takes the unclipped step, as the JAX learner does.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import queue
 import threading
@@ -35,6 +40,7 @@ from torched_impala_tpu_torch.ops import precision
 from torched_impala_tpu_torch.ops.losses import ImpalaLossConfig, impala_loss
 from torched_impala_tpu_torch.optim import RMSProp
 from torched_impala_tpu_torch.runtime.param_store import ParamStore
+from torched_impala_tpu_torch.runtime.traj_ring import TrajectoryRing
 from torched_impala_tpu_torch.runtime.types import QueueClosed, Trajectory, map_state
 
 
@@ -48,6 +54,12 @@ class LearnerConfig:
     # Call the logger every N steps; converting the logs to floats waits
     # for the device, so keep this > 1 for throughput runs.
     log_interval: int = 1
+    # The trajectory ring (runtime/traj_ring.py): vectorized actors write
+    # unrolls straight into [T+1, B, ...] batch slots (pinned host memory
+    # on the card) and the batcher copies a completed slot to the device
+    # on a side stream, with no host stacking. Every actor's env count
+    # must divide batch_size (loop.train checks).
+    traj_ring: bool = False
 
 
 def stack_trajectories(trajs: list[Trajectory]) -> Trajectory:
@@ -70,6 +82,29 @@ def stack_trajectories(trajs: list[Trajectory]) -> Trajectory:
     )
 
 
+def alloc_stack_buffers(trajs: list[Trajectory]) -> Trajectory:
+    """Empty arrays shaped and typed as `stack_trajectories(trajs)`' output
+    (the trajectory ring's slots take these shapes)."""
+    t0, B = trajs[0], len(trajs)
+
+    def stacked(x):
+        return np.empty((x.shape[0], B) + x.shape[1:], x.dtype)
+
+    return Trajectory(
+        obs=stacked(t0.obs),
+        first=stacked(t0.first),
+        actions=stacked(t0.actions),
+        behaviour_logits=stacked(t0.behaviour_logits),
+        rewards=stacked(t0.rewards),
+        cont=stacked(t0.cont),
+        agent_state=map_state(
+            lambda x: np.empty((B * x.shape[0],) + x.shape[1:], x.dtype), t0.agent_state
+        ),
+        actor_id=-1,
+        param_version=0,
+    )
+
+
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares of every element (optax.global_norm)."""
     return torch.sqrt(sum(torch.sum(torch.square(t)) for t in tensors))
@@ -86,7 +121,10 @@ class Learner:
         config: LearnerConfig,
         device: torch.device,
         logger: Optional[Callable[[Mapping[str, Any]], None]] = None,
+        example_obs: Optional[np.ndarray] = None,
     ) -> None:
+        """`example_obs` (one observation) shapes the trajectory ring's
+        slots; it is needed only with `config.traj_ring`."""
         self._agent = agent
         self._optimizer = optimizer
         self._config = config
@@ -116,6 +154,21 @@ class Learner:
         self._wait_accum = 0.0
         self._last_log_t: Optional[float] = None
         self._last_log_frames = 0
+        # The ring: the device queue's depth in slots in flight, one
+        # filling and one spare.
+        self.traj_ring: Optional[TrajectoryRing] = None
+        if config.traj_ring:
+            if example_obs is None:
+                raise ValueError("traj_ring needs example_obs to shape its slots")
+            self.traj_ring = TrajectoryRing(
+                num_slots=self._batch_q.maxsize + 2,
+                unroll_length=config.unroll_length,
+                batch_size=config.batch_size,
+                example_obs=example_obs,
+                num_actions=agent.net.num_actions,
+                agent_state_example=agent.initial_state(1),
+                pin_memory=self._device.type == "cuda",
+            )
         self.param_store = ParamStore()
         self._publish()
 
@@ -160,23 +213,89 @@ class Learner:
             map_state(put, batch.agent_state),
         )
 
+    def _push(self, item: tuple) -> bool:
+        """Hand a device batch to the learner; False once stopped."""
+        while not self._stop.is_set():
+            try:
+                self._batch_q.put(item, timeout=0.5)
+                return True
+            except queue.Full:
+                continue
+        return False
+
     def _batcher_loop(self) -> None:
         try:
+            if self.traj_ring is not None:
+                self._ring_batcher_loop()
+                return
             while not self._stop.is_set():
                 trajs = self._collect()
                 if trajs is None:
                     return
                 batch = stack_trajectories(trajs)
-                item = (self._to_device(batch), batch.param_version)
-                while not self._stop.is_set():
-                    try:
-                        self._batch_q.put(item, timeout=0.5)
-                        break
-                    except queue.Full:
-                        continue
+                if not self._push((self._to_device(batch), batch.param_version, None)):
+                    return
         except BaseException as e:  # noqa: BLE001 - surfaced via step_once
             self.error = e
             raise
+
+    def _ring_batcher_loop(self) -> None:
+        """The ring's consumer: a completed slot already is a batch, so it
+        goes to the device as it is.
+
+        On the card the slot's pinned buffers are copied with
+        `non_blocking=True` on a side stream, and an event recorded after
+        the copies goes with the batch: `step_once` makes the train step's
+        stream wait on it. The slot is released only once its event has
+        completed (`release_after_transfer`); until then the DMA may still
+        read it. At most the device queue's depth of slots wait so, and
+        each pass of the loop (a timed-out `pop_ready` too) returns the
+        slots whose copies are done, so the writers get them back while
+        the batcher waits for the next slot.
+
+        On the CPU, `.to("cpu")` would alias the slot, and a recycled slot
+        would overwrite a queued batch: each batch is staged through one
+        owning copy instead, and the slot is released at once."""
+        ring = self.traj_ring
+        cuda = self._device.type == "cuda"
+        copy_stream = torch.cuda.Stream(self._device) if cuda else None
+        inflight: collections.deque = collections.deque()  # (slot, event)
+        keep = self._batch_q.maxsize
+        while not self._stop.is_set():
+            # With copies in flight, wake often to hand their slots back.
+            view = ring.pop_ready(timeout=0.01 if inflight else 0.5)
+            if view is not None and cuda:
+                with torch.cuda.stream(copy_stream):
+                    arrays = self._ring_to_device(view.tensors)
+                    event = torch.cuda.Event()
+                    event.record(copy_stream)
+                inflight.append((view.slot, event))
+            elif view is not None:
+                owned = view.tensors
+                owned = (*(t.clone() for t in owned[:6]), map_state(torch.clone, owned[6]))
+                arrays = self._ring_to_device(owned)
+                event = None
+                ring.release(view.slot)
+            # Slots whose copies are done go back on every pass; past the
+            # queue's depth, wait for the oldest.
+            while inflight and (len(inflight) > keep or inflight[0][1].query()):
+                ring.release_after_transfer(*inflight.popleft())
+            if view is not None and not self._push((arrays, view.param_version, event)):
+                return
+
+    def _ring_to_device(self, tensors: tuple) -> tuple:
+        """A slot's tensors as the train step's tuple on the device (the
+        copies are enqueued on the current stream; actions widen to int64
+        there)."""
+        obs, first, actions, logits, rewards, cont, state = tensors
+
+        def put(x: torch.Tensor) -> torch.Tensor:
+            return x.to(self._device, non_blocking=True)
+
+        return (
+            put(obs), put(first), put(actions).long(), put(logits), put(rewards),
+            put(cont), map_state(put, state),
+        )
 
     def start(self) -> None:
         if self._batcher_thread is None:
@@ -187,6 +306,9 @@ class Learner:
 
     def stop(self) -> None:
         self._stop.set()
+        if self.traj_ring is not None:
+            # Actors blocked in acquire raise QueueClosed and exit.
+            self.traj_ring.close()
 
     def join(self, timeout: float = 10.0) -> None:
         if self._batcher_thread is not None:
@@ -234,9 +356,17 @@ class Learner:
             raise RuntimeError("learner batcher thread died") from self.error
         t0 = time.monotonic()
         try:
-            arrays, batch_version = self._batch_q.get(timeout=timeout)
+            arrays, batch_version, copied = self._batch_q.get(timeout=timeout)
         finally:
             self._wait_accum += time.monotonic() - t0
+        if copied is not None:
+            # A ring batch copied on the batcher's side stream: this
+            # stream waits for the copies, and the caching allocator keeps
+            # the batch's memory until this stream is done with it.
+            stream = torch.cuda.current_stream(self._device)
+            stream.wait_event(copied)
+            for t in (*arrays[:6], *arrays[6]):
+                t.record_stream(stream)
         self.last_batch_device = arrays[0].device
         logs = self.train_step(arrays)
         cfg = self._config
