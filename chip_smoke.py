@@ -103,11 +103,32 @@ non-zero (no phase's failure is caught):
    - "pong_thread": 4 thread actors x 8 envs, 12 learner steps, with the
      learner's train step alone on a fixed batch, one actor alone and
      one fake env step.
-10. breakout: `loop.train` with the BREAKOUT preset (IMPALA deep ResNet,
+10. resume: the PONG preset as configured (32 worker processes, queue
+   feed) through `loop.train` with checkpoints. Run 1: an
+   `AsyncCheckpointer` (interval 4, keep 3) and a fault plan (one env
+   worker SIGKILLed, actor 0 raised at an unroll start, the third save
+   corrupted, the learner crashed at step 14) must end in `ChaosError`
+   after a pool restart and a supervisor restart, with saves at steps 4,
+   8 and 12, step 12's file corrupt and the others loadable, no
+   half-written file, every worker exited, no process left, and the
+   step-8 file equal bit for bit to the state read synchronously on the
+   learner thread at step 8. The restore alone, into a fresh learner on
+   the card, falls back past step 12 to step 8 (timed). Run 2
+   (`resume="auto"`, 16 steps) must restore step 8 (the params equal to
+   the file, the actors' first version the restored frame count), reach
+   step 16 with >= 8 V-trace launches and write its final save. Run 3:
+   the synchronous `Checkpointer` every 4 steps, a crash at step 6, a
+   resume from step 4 to 8. Then its numbers, each on a line with the
+   card's name and power limit: the train step on a fixed batch alone
+   and with an async save in its window (CUDA events) and the loop's
+   step windows with and without one (host clock), the clone's ms on
+   the learner thread, the writer's seconds and bytes a save, the
+   restore's seconds. Its temporary directory is removed.
+11. breakout: `loop.train` with the BREAKOUT preset (IMPALA deep ResNet,
    LSTM(256) core, bf16 torso, 4 actions) as 4 thread actors x 8 envs
    for 12 learner steps, as pong_thread, once with the preset's unfused
    blocks and once with `fused_conv=True`.
-11. pong_transformer: the same with the PONG_TRANSFORMER preset
+12. pong_transformer: the same with the PONG_TRANSFORMER preset
    (Nature-CNN bf16 torso, transformer core d_model 256, 2 layers, 4
    heads, window 128) for 12 learner steps with the attention kernels
    forced and `fused_epilogue=True`; it must launch the attention
@@ -1799,6 +1820,416 @@ def phase_pong_transformer(device):
     return launches
 
 
+# The resume phase. Run 1's fault plan: one env worker killed (the 60th
+# pool-site event: a lockstep step of either pool), actor 0 raised at an
+# unroll start, the third save (step 12) corrupted, the learner crashed
+# at step 14.
+RESUME_STEPS = 16
+RESUME_INTERVAL = 4
+RESUME_PLAN = [
+    {"kind": "kill_env_worker", "at": 60},
+    {"kind": "raise_in_actor", "at": 2, "target": 0},
+    {"kind": "corrupt_checkpoint", "at": 3},
+    {"kind": "crash_learner", "at": 14},
+]
+# Run 3, the synchronous checkpointer: saves every 4 steps, a crash at
+# step 6, then a resume to step 8.
+SYNC_STEPS, SYNC_CRASH = 8, 6
+# Saves timed against a train step on a fixed batch (device-side).
+SAVE_TIMING_REPS = 10
+
+
+def host_state(agent, optimizer, num_steps, frames_per_step) -> dict:
+    """`Learner.get_state()` read from the objects the learner shares with
+    its caller (the agent's net holds the learner's params, the optimizer
+    its `nu`), taken on the learner thread: what a synchronous save
+    writes at that step."""
+    opt = optimizer.state_dict()
+    return {
+        "params": {k: v.detach().cpu().clone() for k, v in agent.net.named_parameters()},
+        "opt_state": {"count": opt["count"], "nu": {k: v.cpu() for k, v in opt["nu"].items()}},
+        "num_frames": num_steps * frames_per_step,
+        "num_steps": num_steps,
+    }
+
+
+def states_equal(a, b) -> bool:
+    """Bit-for-bit equality of two `get_state()`-shaped dicts."""
+    import torch
+
+    from torched_impala_tpu_torch.utils.checkpoint import flat_state
+
+    fa, fb = flat_state(a), flat_state(b)
+    if fa.keys() != fb.keys():
+        return False
+    for key, x in fa.items():
+        y = fb[key]
+        if isinstance(x, torch.Tensor):
+            if x.dtype != y.dtype or not torch.equal(x.cpu(), y.cpu()):
+                return False
+        elif int(x) != int(y):
+            return False
+    return True
+
+
+def recording_injector(plan):
+    """A `ChaosInjector` that also keeps every pool it hooks and every
+    worker pid it sees, for the no-process-left check."""
+    from torched_impala_tpu_torch.resilience import ChaosInjector
+
+    class Recording(ChaosInjector):
+        def __init__(self, plan):
+            super().__init__(plan)
+            self.pools, self.pids = {}, set()
+
+        def pool_hook(self, pool):
+            self.pools[id(pool)] = pool
+            self.pids.update(pool.pids)
+            super().pool_hook(pool)
+
+    return Recording(plan)
+
+
+def check_pools_gone(name, injector) -> None:
+    """Every worker the run's pools ever had has exited, each pool is
+    closed and its shared-memory segment unlinked."""
+    alive = [p for p in injector.pids if os.path.exists(f"/proc/{p}")]
+    shm = [p.shm_name for p in injector.pools.values()
+           if os.path.exists(f"/dev/shm/{p.shm_name.lstrip('/')}")]
+    if not injector.pools or alive or shm or not all(p._closed for p in injector.pools.values()):
+        raise AssertionError(f"{name}: pools {len(injector.pools)}, workers alive {alive}, shm {shm}")
+
+
+def median(xs):
+    return statistics.median(xs) if xs else None
+
+
+def resume_runs(cfg, device, directory, min_step_s=0.0, after_run1=None) -> dict:
+    """Run 1 (async checkpointer and RESUME_PLAN: ends in ChaosError), the
+    restore alone, run 2 (resume="auto" to RESUME_STEPS) and run 3 (the
+    synchronous checkpointer, a crash and a resume) with preset `cfg` in
+    `directory`, through `loop.train`; raises on a failed check and
+    returns the numbers. Each step takes at least `min_step_s` seconds,
+    and 0.1 s more until the supervisor's first restart shows in the
+    logs, so the crash cannot come before its monitor has looked.
+    `after_run1()` runs once run 1 has ended."""
+    import contextlib
+    import io
+
+    import torch
+
+    from torched_impala_tpu_torch import configs
+    from torched_impala_tpu_torch.resilience import (
+        AsyncCheckpointer, ChaosError, ChaosPlan, config_fingerprint, recovery,
+    )
+    from torched_impala_tpu_torch.runtime import loop
+    from torched_impala_tpu_torch.runtime.learner import Learner
+    from torched_impala_tpu_torch.runtime.vector_actor import VectorActor
+    from torched_impala_tpu_torch.utils.checkpoint import (
+        CheckpointCorruptError, Checkpointer, load_state_file,
+    )
+
+    cuda = device.type == "cuda"
+    frames = cfg.unroll_length * cfg.batch_size
+    fp = config_fingerprint(cfg)
+    out = {"config_hash": fp}
+
+    def run(rec, seed, on_step, **kwargs):
+        """`loop.train` from fresh params of `seed`; `rec` gets the
+        logged (step, time, supervisor restarts, pool restarts), the
+        run's stderr, the agent and the optimizer. With an async
+        checkpointer, the step before each due save waits for its writer
+        to be idle, so no due save is skipped for a busy writer and the
+        saves land where the checks expect them (the skip itself is held
+        to JAX's by the CPU tests)."""
+        ck = kwargs.get("async_checkpointer")
+
+        def on_learner_step(n):
+            if ck is not None and (n + 1) % RESUME_INTERVAL == 0:
+                ck.wait()
+            on_step(rec, n)
+
+        rec.update(logs=[], stderr="", agent=configs.make_agent(cfg, seed=seed),
+                   optimizer=configs.make_optimizer(cfg))
+
+        def logger(logs):
+            rec["logs"].append((logs["num_steps"], time.perf_counter(),
+                                logs["actor_restarts"], logs["pool_restarts"]))
+            time.sleep(min_step_s + (0.1 if logs["actor_restarts"] == 0 else 0.0))
+
+        err = io.StringIO()
+        try:
+            with contextlib.redirect_stderr(err):
+                return loop.train(
+                    agent=rec["agent"], total_steps=kwargs.pop("total_steps"), logger=logger,
+                    log_every=1, on_learner_step=on_learner_step, config_hash=fp,
+                    **dict(train_args(cfg, device), optimizer=rec["optimizer"]), **kwargs,
+                )
+        finally:
+            rec["stderr"] = err.getvalue()
+            sys.stderr.write(rec["stderr"])
+
+    def probe_at(step, key):
+        def on_step(rec, n):
+            if n == step and key not in rec:
+                rec[key] = host_state(rec["agent"], rec["optimizer"], n, frames)
+        return on_step
+
+    # Run 1: the async checkpointer under the fault plan.
+    ck = AsyncCheckpointer(directory, keep=3, interval_steps=RESUME_INTERVAL, config_hash=fp)
+    injector = recording_injector(ChaosPlan.from_dicts(RESUME_PLAN))
+    r1 = {}
+    try:
+        run(r1, 0, probe_at(8, "state8"), total_steps=RESUME_STEPS, async_checkpointer=ck,
+            chaos=injector)
+    except ChaosError as e:
+        crash = repr(e)
+    else:
+        raise AssertionError("resume run 1 ended without ChaosError")
+    finally:
+        ck.close()
+    if after_run1 is not None:
+        after_run1()
+    fired = sorted(f.kind for f in injector.fired)
+    _, _, supervisor_restarts, pool_restarts = r1["logs"][-1]
+    saves1 = list(ck.records)
+    if (
+        fired != sorted(f["kind"] for f in RESUME_PLAN)
+        or "learner crash at step 14" not in crash
+        or supervisor_restarts < 1
+        or pool_restarts < 1
+        or "[supervisor] restarting actor 0" not in r1["stderr"]
+    ):
+        raise AssertionError(
+            f"resume run 1: fired {fired}, {crash}, supervisor restarts "
+            f"{supervisor_restarts}, pool restarts {pool_restarts}"
+        )
+    if [s["step"] for s in saves1] != [4, 8, 12]:
+        raise AssertionError(f"resume run 1: saves at {[s['step'] for s in saves1]}")
+    check_pools_gone("resume run 1", injector)
+    files = sorted(os.listdir(directory))
+    if any(".tmp." in name for name in files):
+        raise AssertionError(f"resume run 1: a half-written file in {files}")
+    corrupt = []
+    for step in recovery.list_manifest_steps(directory):
+        try:
+            load_state_file(recovery.checkpoint_path(directory, step), r1["state8"])
+        except CheckpointCorruptError:
+            corrupt.append(step)
+    if corrupt != [12]:
+        raise AssertionError(f"resume run 1: corrupt checkpoints {corrupt}")
+    step8 = load_state_file(recovery.checkpoint_path(directory, 8), r1["state8"])
+    if not states_equal(step8, r1["state8"]):
+        raise AssertionError("resume run 1: the step-8 file differs from get_state() at step 8")
+    with_save, without = step_windows(r1["logs"], {4, 8, 12})
+    out["run1"] = dict(
+        crash=crash, faults_fired=fired, saves=[4, 8, 12], corrupt=corrupt,
+        supervisor_restarts=supervisor_restarts, pool_restarts=pool_restarts,
+        step8_file_equals_get_state=True, files=files,
+        loop_step_ms_with_save=median(with_save), loop_step_ms_without_save=median(without),
+        loop_steps_with_save=len(with_save), loop_steps_without_save=len(without),
+    )
+
+    # The restore alone, into a fresh learner on the device.
+    learner = Learner(agent=configs.make_agent(cfg, seed=1), optimizer=configs.make_optimizer(cfg),
+                      config=configs.make_learner_config(cfg), device=device)
+    target = learner.get_state()
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        manifest, state = recovery.restore_latest(directory, target, config_hash=fp)
+    load_s = time.perf_counter() - t0
+    learner.set_state(state)
+    if cuda:
+        torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    sys.stderr.write(err.getvalue())
+    if manifest.step != 8 or "step 12 checkpoint unusable, falling back" not in err.getvalue():
+        raise AssertionError(f"restore: step {manifest.step}, {err.getvalue()!r}")
+    if not states_equal(learner.get_state(), step8):
+        raise AssertionError("restore: the learner's state differs from the step-8 file")
+    out["restore"] = dict(step=manifest.step, fell_back_past=12, seconds=restore_s,
+                          load_seconds=load_s, bytes=os.path.getsize(
+                              recovery.checkpoint_path(directory, 8)))
+
+    # Run 2: resume="auto" on the same directory.
+    ck2 = AsyncCheckpointer(directory, keep=3, interval_steps=RESUME_INTERVAL, config_hash=fp)
+    versions = []
+    real_load = VectorActor._load_latest
+
+    def load_latest(actor):
+        version = real_load(actor)
+        versions.append(version)
+        return version
+
+    def first_state(rec, n):
+        if "first" not in rec:
+            rec["first"] = (n, host_state(rec["agent"], rec["optimizer"], n, frames))
+
+    r2 = {}
+    VectorActor._load_latest = load_latest
+    zero_launches()
+    try:
+        result = run(r2, 1, first_state, total_steps=RESUME_STEPS, async_checkpointer=ck2,
+                     resume="auto")
+    finally:
+        VectorActor._load_latest = real_load
+        ck2.close()
+    launches = read_launches()
+    final = load_state_file(recovery.checkpoint_path(directory, RESUME_STEPS), step8)
+    checks = {
+        "restored step 8": r2["first"][0] == 8,
+        "restored params equal the step-8 file": states_equal(r2["first"][1], step8),
+        "fell back past step 12": "step 12 checkpoint unusable, falling back" in r2["stderr"],
+        "resumed from the step-8 manifest": "[resume] manifest @ step 8" in r2["stderr"],
+        "actors first acted on the restored version": bool(versions) and min(versions) == 8 * frames,
+        "reached step 16": result.learner.num_steps == RESUME_STEPS,
+        "final save at step 16": ck2.all_steps()[-1] == RESUME_STEPS
+        and states_equal(final, result.learner.get_state()),
+        ">= 8 vtrace launches": not cuda or launches["vtrace"] >= RESUME_STEPS - 8,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"resume run 2: {checks}")
+    saves2 = list(ck2.records)
+    out["run2"] = dict(checks=list(checks), saves=[s["step"] for s in saves2],
+                       retained=ck2.all_steps(), vtrace_launches=launches["vtrace"],
+                       first_actor_version=min(versions))
+
+    # The train step on a fixed batch, alone and with an async save's
+    # copies and write in its window (CUDA events); the clone's host ms
+    # with no actor threads about.
+    if cuda:
+        learner = result.learner
+        batch = fixed_batch(cfg, device, learner._agent.initial_state(cfg.batch_size))
+        alone = time_cuda(lambda: learner.train_step(batch), iters=20, warmup=3)
+        ck4 = AsyncCheckpointer(os.path.join(directory, "timing"), keep=1, interval_steps=1)
+        in_window = []
+        try:
+            for rep in range(SAVE_TIMING_REPS):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                if not ck4.maybe_save(rep + 1, learner.get_state_device):
+                    raise AssertionError("resume: the timing save was not taken")
+                start.record()
+                learner.train_step(batch)
+                end.record()
+                end.synchronize()
+                in_window.append(start.elapsed_time(end))
+                ck4.wait()
+        finally:
+            ck4.close()
+        out["train_step_alone_ms"] = alone
+        out["train_step_with_save_ms"] = statistics.median(in_window)
+        out["clone_ms_alone"] = median([r["submit_s"] * 1e3 for r in ck4.records])
+        saves2 += list(ck4.records)
+
+    interval_saves = saves1 + saves2
+    out["saves"] = dict(
+        count=len(interval_saves),
+        # maybe_save's call of get_state_device and the event it records,
+        # in the loop's post-step hook (actor threads running).
+        clone_ms_on_learner_thread=median([s["submit_s"] * 1e3 for s in saves1 + list(ck2.records)
+                                            if s["interval"]]),
+        writer_s=median([s["write_s"] for s in interval_saves]),
+        writer_copy_s=median([s["copy_s"] for s in interval_saves]),
+        bytes=median([s["bytes"] for s in interval_saves]),
+        all=interval_saves,
+    )
+
+    # Run 3: the synchronous checkpointer, a crash, then a resume.
+    sync_dir = os.path.join(directory, "sync")
+    ck3 = Checkpointer(sync_dir, max_to_keep=3)
+    save_s = []
+    real_save = ck3.save
+
+    def timed_save(step, state):
+        t0 = time.perf_counter()
+        saved = real_save(step, state)
+        save_s.append(time.perf_counter() - t0)
+        return saved
+
+    ck3.save = timed_save
+    r3 = {}
+    try:
+        run(r3, 2, probe_at(4, "state4"), total_steps=SYNC_STEPS, checkpointer=ck3,
+            checkpoint_interval=RESUME_INTERVAL,
+            chaos=ChaosPlan.from_dicts([{"kind": "crash_learner", "at": SYNC_CRASH}]))
+    except ChaosError:
+        pass
+    else:
+        raise AssertionError("resume run 3: no ChaosError")
+    if ck3.all_steps() != [4] or not states_equal(ck3.restore(r3["state4"]), r3["state4"]):
+        raise AssertionError(f"resume run 3: saved {ck3.all_steps()}")
+    r3b = {}
+    result = run(r3b, 3, first_state, total_steps=SYNC_STEPS, checkpointer=ck3,
+                 checkpoint_interval=RESUME_INTERVAL, resume="auto")
+    if (
+        r3b["first"][0] != 4
+        or not states_equal(r3b["first"][1], r3["state4"])
+        or result.learner.num_steps != SYNC_STEPS
+        or ck3.all_steps() != [4, SYNC_STEPS]
+    ):
+        raise AssertionError(f"resume run 3: first {r3b['first'][0]}, saved {ck3.all_steps()}")
+    out["run3"] = dict(saves=ck3.all_steps(), resumed_from=4, sync_save_s=median(save_s))
+    return out
+
+
+def step_windows(logs, saved):
+    """Host ms of each learner step's window (from the last step's log to
+    its own), split into steps that follow a save (the writer runs in
+    their window) and the rest; steps before the supervisor's first
+    restart (slowed on purpose) and the first step are left out."""
+    with_save, without = [], []
+    for (s0, t0, restarts, _), (s1, t1, _, _) in zip(logs, logs[1:]):
+        if restarts == 0:
+            continue
+        (with_save if s0 in saved else without).append((t1 - t0) * 1e3)
+    return with_save, without
+
+
+def phase_resume(device, smi):
+    """The Pong preset as configured (32 worker processes, queue feed)
+    crashed under a fault plan with the async checkpointer, restored, and
+    resumed to its target; then the same with the synchronous one."""
+    import shutil
+    import tempfile
+
+    from torched_impala_tpu_torch import configs
+    from torched_impala_tpu_torch.runtime import env_pool
+
+    cfg = configs.PONG
+    assert (cfg.actor_mode, cfg.num_actors, cfg.envs_per_actor, cfg.traj_ring) == (
+        "process", 32, 1, False
+    )
+
+    def no_process_left():
+        # The pools' helpers outlive them (a later pool starts them again).
+        env_pool.stop_helpers()
+        deadline = time.monotonic() + 5
+        while (left := descendants(os.getpid())) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        if left:
+            raise AssertionError(f"resume run 1: processes left {left}")
+
+    directory = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    try:
+        numbers = resume_runs(cfg, device, directory, after_run1=no_process_left)
+    finally:
+        shutil.rmtree(directory)
+    saves = numbers["saves"]
+    emit({"phase": "resume", "card": smi, **{k: numbers[k] for k in ("run1", "run2", "run3")},
+          "restore": numbers["restore"], "saves": {k: v for k, v in saves.items() if k != "all"}})
+    emit({"resume_train_step_ms": {
+        "alone": numbers["train_step_alone_ms"], "with_save_in_window": numbers["train_step_with_save_ms"],
+        "loop_window_with_save": numbers["run1"]["loop_step_ms_with_save"],
+        "loop_window_without_save": numbers["run1"]["loop_step_ms_without_save"]}, "card": smi})
+    emit({"resume_clone_ms_on_learner_thread": {"in_the_loop": saves["clone_ms_on_learner_thread"],
+                                                 "alone": numbers["clone_ms_alone"]}, "card": smi})
+    emit({"resume_writer_per_save": {"seconds": saves["writer_s"], "copy_seconds": saves["writer_copy_s"],
+                                     "bytes": saves["bytes"]}, "card": smi})
+    emit({"resume_restore_seconds": numbers["restore"]["seconds"], "card": smi})
+    return numbers
+
+
 def stop_children() -> None:
     """Stop every process this run started: the env pools' forkserver and
     resource tracker (they outlive the pools), then wait up to 5 s for
@@ -1864,11 +2295,10 @@ def run_phases():
     }
     phase_model(device)
     # Each kernel's launches come from the main path that runs it.
-    launches = {
-        "vtrace": phase_pong(device)["vtrace"],
-        "lstm_cell": phase_breakout(device, fused=False)["lstm_cell"],
-        "resblock": phase_breakout(device, fused=True)["resblock"],
-    }
+    launches = {"vtrace": phase_pong(device)["vtrace"]}
+    phase_resume(device, smi)
+    launches["lstm_cell"] = phase_breakout(device, fused=False)["lstm_cell"]
+    launches["resblock"] = phase_breakout(device, fused=True)["resblock"]
     transformer_launches = phase_pong_transformer(device)
     for name in ("fused_loss_fwd", "fused_loss_bwd", "attention_fwd", "attention_bwd"):
         launches[name] = transformer_launches[name]

@@ -14,6 +14,7 @@
 import ast
 import dataclasses
 import math
+import time
 from pathlib import Path
 
 import numpy as np
@@ -214,9 +215,17 @@ class _BrokenEnv:
 
 
 @pytest.mark.filterwarnings("ignore::pytest.PytestUnhandledThreadExceptionWarning")
-def test_actor_failure_is_raised_while_others_feed_the_learner():
-    """Actor 0 dies in its first unroll while actor 1 alone keeps the
-    learner fed: the run still raises actor 0's error."""
+@pytest.mark.parametrize(
+    "broken,max_actor_restarts",
+    [((0,), 10), ((0, 1), 1), ((0, 1), 0)],
+    ids=["one_keeps_crashing", "all_broken", "no_restart_budget"],
+)
+def test_actor_failure_is_raised_while_others_feed_the_learner(broken, max_actor_restarts):
+    """The actor supervisor, as JAX's: actor 0's env raises on its third
+    step after every restart while actor 1 feeds the learner, and the run
+    reaches its steps with actor 0 restarted; when every actor is broken
+    (or no restart is allowed) the run raises JAX's "all actor threads are
+    dead and unrecoverable", chained to an actor's error."""
     from torched_impala_tpu_torch.envs.fake import ScriptedEnv
     from torched_impala_tpu_torch.models.agent import Agent
     from torched_impala_tpu_torch.models.nets import ImpalaNet
@@ -225,16 +234,32 @@ def test_actor_failure_is_raised_while_others_feed_the_learner():
     from torched_impala_tpu_torch.runtime.learner import LearnerConfig
 
     def factory(seed, env_index):
-        return _BrokenEnv() if env_index == 0 else ScriptedEnv(episode_len=5)
+        return _BrokenEnv() if env_index in broken else ScriptedEnv(episode_len=5)
 
-    with pytest.raises(RuntimeError, match="actor 0 failed") as info:
-        loop.train(
-            agent=Agent(ImpalaNet(2, MLPTorso(4, (8,)))),
-            env_factory=factory,
-            num_actors=2,
-            learner_config=LearnerConfig(batch_size=1, unroll_length=4),
-            optimizer=RMSProp(1e-3),
-            total_steps=4,
-            device="cpu",
-        )
+    def logger(logs):
+        # Slow steps until the supervisor's first restart shows, so the
+        # run cannot end before its monitor has looked.
+        if logs["actor_restarts"] == 0:
+            time.sleep(0.2)
+
+    kwargs = dict(
+        agent=Agent(ImpalaNet(2, MLPTorso(4, (8,)))),
+        env_factory=factory,
+        num_actors=2,
+        learner_config=LearnerConfig(batch_size=1, unroll_length=4),
+        optimizer=RMSProp(1e-3),
+        total_steps=40,
+        device="cpu",
+        logger=logger,
+        log_every=1,
+        max_actor_restarts=max_actor_restarts,
+    )
+    if len(broken) == 1:
+        result = loop.train(**kwargs)
+        assert result.learner.num_steps == 40
+        assert result.actor_restarts >= 1
+        assert result.final_logs["actor_restarts"] >= 1
+        return
+    with pytest.raises(RuntimeError, match="all actor threads are dead and unrecoverable") as info:
+        loop.train(**kwargs)
     assert "env fault" in str(info.value.__cause__)

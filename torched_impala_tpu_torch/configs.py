@@ -78,6 +78,14 @@ class ExperimentConfig:
     discount: float = 0.99
     entropy_coef: float = 0.01
     vf_coef: float = 0.5
+    # Checkpoint cadence and retention (`--checkpoint-interval`,
+    # `--checkpoint-keep`, `--checkpoint-seconds`): learner steps between
+    # saves; with the async checkpointer also a save when this many wall
+    # seconds passed (0 = off), whichever comes first; checkpoints kept by
+    # either backend.
+    checkpoint_interval: int = 1000
+    checkpoint_keep: int = 3
+    checkpoint_seconds: float = 0.0
 
     @property
     def frames_per_step(self) -> int:

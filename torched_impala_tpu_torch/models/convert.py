@@ -20,6 +20,13 @@ the mapping is by path: `torso/Conv_0/kernel` -> `torso.Conv_0.weight`.
   (`transformer/block_0/q_proj/kernel` -> `transformer.block_0.q_proj.weight`,
   `transformer/ln_kv_1/scale` -> `transformer.ln_kv_1.weight`): a flax
   LayerNorm's `scale` is torch's `weight`.
+
+`state_from_jax` carries a whole JAX learner state across
+(`Learner.get_state()` as numpy arrays) into the port's `get_state()`
+shape: the params as above, optax's RMSProp `nu` mapped exactly as the
+params are (it has their tree), the schedule's step count (optax keeps
+none under a constant lr, where it equals `num_steps`), `num_frames` and
+`num_steps`. The JAX `rng` has no counterpart (utils/checkpoint.py).
 """
 
 from __future__ import annotations
@@ -83,3 +90,30 @@ def params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
         name = "bias" if kind == "bias" else "weight"
         state[f"{module}.{name}"] = _tensor(value)
     return state
+
+
+def _opt_field(opt_state: tuple, field: str):
+    """`field` of the first state of an optax chain that has one."""
+    for sub in opt_state:
+        if field in getattr(sub, "_fields", ()):
+            return getattr(sub, field)
+    return None
+
+
+def state_from_jax(state: Mapping[str, Any]) -> dict:
+    """A JAX `Learner.get_state()` (numpy leaves) as the port's
+    `Learner.get_state()` dict (module docstring)."""
+    nu = _opt_field(state["opt_state"], "nu")
+    if nu is None:
+        raise ValueError("state_from_jax: the JAX opt_state holds no RMSProp nu")
+    count = _opt_field(state["opt_state"], "count")
+    num_steps = int(np.asarray(state["num_steps"]))
+    return {
+        "params": params_from_jax(state["params"]),
+        "opt_state": {
+            "count": num_steps if count is None else int(np.asarray(count)),
+            "nu": params_from_jax(nu),
+        },
+        "num_frames": int(np.asarray(state["num_frames"])),
+        "num_steps": num_steps,
+    }

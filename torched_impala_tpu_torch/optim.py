@@ -19,6 +19,8 @@ from typing import Callable, Mapping, Union
 
 import torch
 
+from torched_impala_tpu_torch.utils.checkpoint import validate_restored_shapes
+
 Schedule = Union[float, Callable[[int], float]]
 
 
@@ -65,6 +67,10 @@ class RMSProp:
         return {"count": self.count, "nu": {k: v.clone() for k, v in self.nu.items()}}
 
     def load_state_dict(self, state: Mapping) -> None:
+        """Copy a `state_dict()` in; its `nu` must have the live names and
+        shapes (`copy_` would broadcast a wrong shape), checked before any
+        tensor is written."""
+        validate_restored_shapes(state["nu"], self.nu, what="optimizer nu")
         for k, v in state["nu"].items():
             self.nu[k].copy_(v)
         self.count = int(state["count"])

@@ -13,8 +13,21 @@ train mode with fake envs only).
         --fake-envs --actor-mode thread --num-actors 4 --envs-per-actor 8 \\
         --total-steps 100 [--fused-epilogue] [--device cpu]
 
+    python -m torched_impala_tpu_torch.run --config pong --fake-envs \\
+        --total-steps 1000 --checkpoint-dir DIR --async-checkpoint \\
+        --checkpoint-interval 100 [--resume] [--chaos-plan PLAN.json]
+
 The default device is the CUDA card; without one the run fails unless
 `--device cpu` is given.
+
+`--checkpoint-dir` saves the learner's state: with `--async-checkpoint`
+a writer thread takes the interval saves with run manifests
+(resilience/checkpointer.py), else they are synchronous
+(utils/checkpoint.py); a clean finish adds a final save. `--resume`
+restores the newest checkpoint of the directory first, and
+`--total-steps` counts its steps. `--chaos-plan` injects the faults of a
+JSON plan (resilience/chaos.py), `--chaos N` crashes every env after N
+steps; the actor supervisor and the pools restart what they kill.
 """
 
 from __future__ import annotations
@@ -27,7 +40,10 @@ import time
 import numpy as np
 
 from torched_impala_tpu_torch import configs
+from torched_impala_tpu_torch.envs.fake import CrashingFactory
+from torched_impala_tpu_torch.resilience import AsyncCheckpointer, ChaosPlan, config_fingerprint
 from torched_impala_tpu_torch.runtime.loop import train
+from torched_impala_tpu_torch.utils.checkpoint import Checkpointer
 
 # The CPU runs README.md documents; the tests run them as written.
 PROCESS_CPU_EXAMPLE = (
@@ -40,6 +56,14 @@ CPU_EXAMPLE = (
     "--device cpu"
 )
 BREAKOUT_CPU_EXAMPLE = CPU_EXAMPLE.replace("--config pong", "--config breakout")
+# Save with the async checkpointer, then resume to a later target; `{dir}`
+# is the checkpoint directory.
+RESUME_CPU_EXAMPLE = (
+    CPU_EXAMPLE.replace("--total-steps 3", "--total-steps 4")
+    + " --checkpoint-dir {dir} --async-checkpoint --checkpoint-interval 2",
+    CPU_EXAMPLE.replace("--total-steps 3", "--total-steps 6")
+    + " --checkpoint-dir {dir} --async-checkpoint --checkpoint-interval 2 --resume",
+)
 PONG_TRANSFORMER_CPU_EXAMPLE = (
     CPU_EXAMPLE.replace("--config pong", "--config pong_transformer")
     + " --fused-epilogue"
@@ -79,6 +103,29 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--device", default=None,
                    help="'cuda' (default) or 'cpu'")
     p.add_argument("--log-every", type=int, default=50)
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--checkpoint-interval", type=int, default=None,
+                   help="learner steps between checkpoint saves "
+                   "(default: the preset's checkpoint_interval, 1000)")
+    p.add_argument("--checkpoint-keep", type=int, default=None,
+                   help="checkpoints kept, both backends (default: the "
+                   "preset's checkpoint_keep, 3)")
+    p.add_argument("--checkpoint-seconds", type=float, default=None,
+                   help="async backend: also save when this much wall time "
+                   "passed since the last save (0 = steps only)")
+    p.add_argument("--async-checkpoint", action="store_true",
+                   help="interval saves by a writer thread, with run "
+                   "manifests, so the learner never blocks on disk")
+    p.add_argument("--resume", nargs="?", const="auto", default=None,
+                   choices=("auto",),
+                   help="restore the newest checkpoint of --checkpoint-dir "
+                   "first (manifests and synchronous files compared by step)")
+    p.add_argument("--chaos", type=int, default=0, metavar="N",
+                   help="crash each env after N env steps (the pools and "
+                   "the actor supervisor restart them)")
+    p.add_argument("--chaos-plan", default=None, metavar="PLAN.json",
+                   help="fault plan: a JSON list of {kind, at, target, "
+                   "duration_s} (resilience/chaos.py)")
     return p.parse_args(argv)
 
 
@@ -111,28 +158,69 @@ def _print_logger(logs) -> None:
 def main(argv=None) -> int:
     args = parse_args(argv)
     cfg = build_config(args)
-    t0 = time.monotonic()
-    result = train(
-        agent=configs.make_agent(cfg, seed=args.seed),
-        env_factory=configs.make_env_factory(cfg, fake=args.fake_envs),
-        num_actors=cfg.num_actors,
-        envs_per_actor=cfg.envs_per_actor,
-        actor_mode=cfg.actor_mode,
-        pool_mode=cfg.pool_mode,
-        pool_ready_fraction=cfg.pool_ready_fraction,
-        learner_config=configs.make_learner_config(cfg),
-        optimizer=configs.make_optimizer(cfg),
-        total_steps=args.total_steps,
-        seed=args.seed,
-        device=args.device,
-        logger=_print_logger,
-        log_every=args.log_every,
+    interval = (
+        args.checkpoint_interval
+        if args.checkpoint_interval is not None
+        else cfg.checkpoint_interval
     )
+    keep = args.checkpoint_keep if args.checkpoint_keep is not None else cfg.checkpoint_keep
+    seconds = (
+        args.checkpoint_seconds
+        if args.checkpoint_seconds is not None
+        else cfg.checkpoint_seconds
+    )
+    if (args.async_checkpoint or args.resume) and args.checkpoint_dir is None:
+        raise SystemExit("--async-checkpoint and --resume need --checkpoint-dir")
+    checkpointer = None
+    if args.checkpoint_dir is not None:
+        checkpointer = Checkpointer(args.checkpoint_dir, max_to_keep=keep)
+    async_checkpointer = config_hash = None
+    if args.async_checkpoint:
+        config_hash = config_fingerprint(cfg)
+        async_checkpointer = AsyncCheckpointer(
+            args.checkpoint_dir,
+            keep=keep,
+            interval_steps=interval,
+            interval_seconds=seconds,
+            config_hash=config_hash,
+        )
+    env_factory = configs.make_env_factory(cfg, fake=args.fake_envs)
+    if args.chaos:
+        env_factory = CrashingFactory(env_factory, crash_after=args.chaos)
+    chaos_plan = ChaosPlan.from_json(args.chaos_plan) if args.chaos_plan else None
+    t0 = time.monotonic()
+    try:
+        result = train(
+            agent=configs.make_agent(cfg, seed=args.seed),
+            env_factory=env_factory,
+            num_actors=cfg.num_actors,
+            envs_per_actor=cfg.envs_per_actor,
+            actor_mode=cfg.actor_mode,
+            pool_mode=cfg.pool_mode,
+            pool_ready_fraction=cfg.pool_ready_fraction,
+            learner_config=configs.make_learner_config(cfg),
+            optimizer=configs.make_optimizer(cfg),
+            total_steps=args.total_steps,
+            seed=args.seed,
+            device=args.device,
+            logger=_print_logger,
+            log_every=args.log_every,
+            checkpointer=checkpointer,
+            checkpoint_interval=interval,
+            resume=args.resume,
+            async_checkpointer=async_checkpointer,
+            config_hash=config_hash,
+            chaos=chaos_plan,
+        )
+    finally:
+        if async_checkpointer is not None:
+            async_checkpointer.close()
     returns = [r for _, r, _ in result.episode_returns]
     print(
         f"done: steps={result.learner.num_steps} frames={result.num_frames} "
         f"episodes={len(returns)} "
         f"return_mean={np.mean(returns) if returns else float('nan'):.4g} "
+        f"actor_restarts={result.actor_restarts} "
         f"seconds={time.monotonic() - t0:.1f}",
         flush=True,
     )

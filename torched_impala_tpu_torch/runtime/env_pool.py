@@ -280,6 +280,9 @@ class ProcessEnvPool:
         self.mode = mode
         self.ready_fraction = float(ready_fraction)
         self.restarts = 0
+        # Chaos seam (resilience/chaos.py): when set, called with the pool
+        # at each lockstep step and each async submit, before any send.
+        self.chaos_hook: Optional[Callable] = None
 
         n = num_workers * envs_per_worker
         obs_bytes = n * int(np.prod(self._obs_shape)) * self._obs_dtype.itemsize
@@ -454,6 +457,8 @@ class ProcessEnvPool:
         rewards = out_rewards if out_rewards is not None else np.zeros((n,), np.float32)
         dones = out_dones if out_dones is not None else np.zeros((n,), np.bool_)
         events: List[Tuple[int, float, int]] = []
+        if self.chaos_hook is not None:
+            self.chaos_hook(self)
         self._act_lane[:] = np.asarray(actions, np.int32)
         dead: List[int] = []
         for w in range(self._num_workers):
@@ -496,6 +501,8 @@ class ProcessEnvPool:
                 f"worker {w} already has a step in flight; wait_any() it before "
                 "submitting again"
             )
+        if self.chaos_hook is not None:
+            self.chaos_hook(self)
         self._act_lane[self._worker_slice(w)] = np.asarray(actions, np.int32)
         try:
             self._conns[w].send(("step",))

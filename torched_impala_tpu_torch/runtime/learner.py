@@ -28,9 +28,10 @@ from __future__ import annotations
 import collections
 import dataclasses
 import queue
+import sys
 import threading
 import time
-from typing import Any, Callable, Mapping, Optional
+from typing import Any, Callable, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -42,6 +43,7 @@ from torched_impala_tpu_torch.optim import RMSProp
 from torched_impala_tpu_torch.runtime.param_store import ParamStore
 from torched_impala_tpu_torch.runtime.traj_ring import TrajectoryRing
 from torched_impala_tpu_torch.runtime.types import QueueClosed, Trajectory, map_state
+from torched_impala_tpu_torch.utils.checkpoint import validate_restored_shapes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -403,10 +405,13 @@ class Learner:
         max_steps: int,
         stop_event: Optional[threading.Event] = None,
         watchdog: Optional[Callable[[], None]] = None,
+        post_step: Sequence[Callable[[int], None]] = (),
     ) -> None:
-        """`max_steps` SGD steps, then stop. `watchdog` runs whenever no
-        batch arrives within a second and should raise if the producers
-        are dead."""
+        """`max_steps` SGD steps, then stop. Each hook of `post_step` runs
+        after every step with the learner's `num_steps`, on this thread
+        (checkpoint saves, chaos, the caller's own); a hook that raises
+        ends the run. `watchdog` runs whenever no batch arrives within a
+        second and should raise if the producers are dead."""
         self.start()
         steps = 0
         try:
@@ -419,6 +424,9 @@ class Learner:
                 except queue.Empty:
                     if watchdog is not None:
                         watchdog()
+                    continue
+                for hook in post_step:
+                    hook(self.num_steps)
         finally:
             self.stop()
             if stop_event is not None:
@@ -427,7 +435,8 @@ class Learner:
     # ---- state ---------------------------------------------------------
 
     def get_state(self) -> dict:
-        """Host copies of the params, optimizer state and counters."""
+        """Host copies of the params, optimizer state and counters
+        (utils/checkpoint.py names its entries)."""
         opt = self._optimizer.state_dict()
         return {
             "params": {k: v.detach().cpu().clone() for k, v in self._params.items()},
@@ -439,19 +448,57 @@ class Learner:
             "num_steps": self.num_steps,
         }
 
+    def get_state_device(self) -> dict:
+        """`get_state`-shaped, with clones on the learner's device in place
+        of host copies: the learner-thread half of an async save
+        (resilience/checkpointer.py). The clones are queued on the current
+        stream, the one that runs the train step, so they are ordered
+        before the next step's in-place update; nothing waits for the
+        device here."""
+        with torch.no_grad():
+            return {
+                "params": {k: v.detach().clone() for k, v in self._params.items()},
+                "opt_state": {
+                    "count": self._optimizer.count,
+                    "nu": {k: v.clone() for k, v in self._optimizer.nu.items()},
+                },
+                "num_frames": self.num_frames,
+                "num_steps": self.num_steps,
+            }
+
     def set_state(self, state: Mapping[str, Any]) -> None:
-        """Restore a `get_state()` dict and republish the params."""
+        """Restore a `get_state()` dict and republish the params, so actors
+        act on the restored policy at its restored frame count.
+
+        Everything is checked before anything is replaced, so a bad state
+        leaves the learner as it was: the params' names and shapes against
+        the live params, the same for `nu`, then the float32 rule for
+        `nu` (`Tensor.copy_` would broadcast a wrong shape silently). With
+        a trajectory ring, the slots a dead writer left half committed are
+        then discarded."""
+        opt_state = state["opt_state"]
+        validate_restored_shapes(state["params"], self._params, what="params")
+        validate_restored_shapes(opt_state["nu"], self._optimizer.nu, what="optimizer nu")
         precision.assert_f32_accumulators(
-            {"optimizer_state": state["opt_state"]["nu"].values()},
+            {"optimizer_state": opt_state["nu"].values()},
             context="Learner.set_state",
         )
         with torch.no_grad():
             for k, v in state["params"].items():
                 self._params[k].copy_(v)
-        self._optimizer.load_state_dict(state["opt_state"])
+        self._optimizer.load_state_dict(opt_state)
         self.num_frames = int(state["num_frames"])
         self.num_steps = int(state["num_steps"])
         self._publish()
+        if self.traj_ring is not None:
+            torn = self.traj_ring.discard_torn()
+            if torn:
+                print(
+                    f"[learner] restore discarded {torn} torn ring slot(s) "
+                    "from a writer that died mid-commit",
+                    file=sys.stderr,
+                    flush=True,
+                )
 
     @property
     def params(self) -> dict[str, torch.Tensor]:

@@ -61,13 +61,18 @@ class VectorActor:
         seed: int = 0,
         on_episode_return: Optional[Callable[[int, float, int], None]] = None,
         traj_ring: Optional[TrajectoryRing] = None,
+        chaos: Optional[Callable[[int], None]] = None,
     ) -> None:
         """`agent` is cloned: the actor keeps a private net on `device`.
         `envs` is a list of envs or a `ProcessEnvPool` (module docstring);
         with `traj_ring` the env count must divide the ring's batch
         (`loop.train` checks it, and `TrajectoryRing.acquire` refuses a
-        block that does not)."""
+        block that does not). `chaos` (resilience/chaos.py) is called with
+        `actor_id` at each unroll start; a raise_in_actor fault raises
+        there, before any env step or ring block, and takes the real
+        crash's path to the supervisor."""
         self._id = actor_id
+        self._chaos = chaos
         self._agent = agent.clone()
         self._agent.net.to(device)
         self._device = torch.device(device)
@@ -140,6 +145,8 @@ class VectorActor:
         """Step all E envs for T steps with the latest params; return E
         single-env trajectories (none with a ring: the unroll was
         committed into a batch slot)."""
+        if self._chaos is not None:
+            self._chaos(self._id)
         param_version = self._load_latest()
         T, E = self._unroll_length, self.num_envs
         block = None
