@@ -1839,15 +1839,22 @@ SYNC_STEPS, SYNC_CRASH = 8, 6
 SAVE_TIMING_REPS = 10
 
 
-def host_state(agent, optimizer, num_steps, frames_per_step) -> dict:
-    """`Learner.get_state()` read from the objects the learner shares with
-    its caller (the agent's net holds the learner's params, the optimizer
-    its `nu`), taken on the learner thread: what a synchronous save
-    writes at that step."""
-    opt = optimizer.state_dict()
+def step_state(agent, optimizer, num_steps, frames_per_step) -> dict:
+    """`Learner.get_state()`'s content at a step, read from the objects the
+    learner shares with its caller (the agent's net holds the learner's
+    params, the optimizer its `nu`) on the learner thread, as clones
+    queued on its current stream, the train step's: what a synchronous
+    save writes at that step, taken with no host sync, so the learner and
+    an async writer run on as they would without it. `states_equal`
+    reads it after the run."""
+    import torch
+
+    opt = optimizer.state_dict()  # clones `nu` on the current stream
+    with torch.no_grad():
+        params = {k: v.detach().clone() for k, v in agent.net.named_parameters()}
     return {
-        "params": {k: v.detach().cpu().clone() for k, v in agent.net.named_parameters()},
-        "opt_state": {"count": opt["count"], "nu": {k: v.cpu() for k, v in opt["nu"].items()}},
+        "params": params,
+        "opt_state": {"count": opt["count"], "nu": opt["nu"]},
         "num_frames": num_steps * frames_per_step,
         "num_steps": num_steps,
     }
@@ -1972,7 +1979,7 @@ def resume_runs(cfg, device, directory, min_step_s=0.0, after_run1=None) -> dict
     def probe_at(step, key):
         def on_step(rec, n):
             if n == step and key not in rec:
-                rec[key] = host_state(rec["agent"], rec["optimizer"], n, frames)
+                rec[key] = step_state(rec["agent"], rec["optimizer"], n, frames)
         return on_step
 
     # Run 1: the async checkpointer under the fault plan.
@@ -2064,7 +2071,7 @@ def resume_runs(cfg, device, directory, min_step_s=0.0, after_run1=None) -> dict
 
     def first_state(rec, n):
         if "first" not in rec:
-            rec["first"] = (n, host_state(rec["agent"], rec["optimizer"], n, frames))
+            rec["first"] = (n, step_state(rec["agent"], rec["optimizer"], n, frames))
 
     r2 = {}
     VectorActor._load_latest = load_latest

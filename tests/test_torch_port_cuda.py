@@ -1111,6 +1111,75 @@ def test_ring_feed_on_the_card_equals_queue_feed(cuda):
             assert a.dtype == b.dtype and torch.equal(a, b)
 
 
+# About 0.2 s of an H100's SM clock: long enough that a writer thread
+# which did not wait for the clones copies them before they exist.
+CAPTURE_SLEEP_CYCLES = 400_000_000
+
+
+@pytest.mark.gpu
+def test_async_save_is_ordered_after_the_clones_on_the_learner_stream(cuda, tmp_path):
+    """The writer's copy is ordered after `get_state_device`'s clones by
+    their event, and nothing else: the learner's stream (a side stream
+    here) sleeps before the clones, the blocks the clones land in hold
+    NaN until the clones run, and the params and `nu` change in place on
+    that stream right after `maybe_save`, with no host sync anywhere. The
+    file must hold the state from before the change, bit for bit. A
+    writer that skipped the event's wait copies the NaN blocks during the
+    sleep; a capture that read the live tensors later sees the change.
+    Nothing may wait for the device behind the test's back and so order
+    the copy by luck: a first save fills the writer's pinned buffer (a
+    pinned allocation syncs the device), and the in-place adds run once
+    on copies before the sleep (a kernel's first launch loads its module,
+    which waits for the sleep while holding the interpreter lock)."""
+    from torched_impala_tpu_torch.models.agent import Agent
+    from torched_impala_tpu_torch.models.nets import ImpalaNet
+    from torched_impala_tpu_torch.models.torsos import MLPTorso
+    from torched_impala_tpu_torch.optim import RMSProp
+    from torched_impala_tpu_torch.resilience import AsyncCheckpointer, recovery
+    from torched_impala_tpu_torch.runtime.learner import Learner, LearnerConfig
+    from torched_impala_tpu_torch.utils.checkpoint import flat_state
+
+    torch.manual_seed(0)
+    learner = Learner(agent=Agent(ImpalaNet(6, MLPTorso(64, (512, 512)))),
+                      optimizer=RMSProp(1e-3),
+                      config=LearnerConfig(batch_size=1, unroll_length=2), device=cuda)
+    with torch.no_grad():
+        for v in learner._optimizer.nu.values():
+            v.uniform_(0.5, 1.0)
+    before = learner.get_state()
+    stream = torch.cuda.Stream(cuda)
+    stream.wait_stream(torch.cuda.current_stream(cuda))
+    ck = AsyncCheckpointer(str(tmp_path), interval_steps=1)
+    try:
+        with torch.cuda.stream(stream), torch.no_grad():
+            assert ck.maybe_save(1, learner.get_state_device)
+            ck.wait()
+            for t in [*learner.params.values(), *learner._optimizer.nu.values()]:
+                t.clone().add_(1.0)
+            nan = [torch.full(t.shape, float("nan"), device=cuda)
+                   for t in flat_state(before).values() if isinstance(t, torch.Tensor)]
+            del nan  # freed on `stream`: the clones below reuse the blocks
+            torch.cuda._sleep(CAPTURE_SLEEP_CYCLES)
+            assert ck.maybe_save(2, learner.get_state_device)
+            for p in learner.params.values():
+                p.add_(1.0)
+            for v in learner._optimizer.nu.values():
+                v.add_(1.0)
+        ck.wait()
+    finally:
+        ck.close()
+    assert [r["step"] for r in ck.records] == [1, 2]
+    manifest, saved = recovery.restore_latest(str(tmp_path), before)
+    assert manifest.step == 2
+    want, got = flat_state(before), flat_state(saved)
+    assert want.keys() == got.keys()
+    for key, x in want.items():
+        if isinstance(x, torch.Tensor):
+            assert got[key].dtype == x.dtype and torch.equal(got[key], x), key
+        else:
+            assert int(got[key]) == int(x), key
+
+
 def test_wrappers_refuse_cpu_tensors():
     """No fallback in a wrapper: a CPU tensor raises before any build."""
     from torched_impala_tpu_torch.ops import (

@@ -19,6 +19,7 @@ from typing import Callable, Mapping, Union
 
 import torch
 
+from torched_impala_tpu_torch.ops import precision
 from torched_impala_tpu_torch.utils.checkpoint import validate_restored_shapes
 
 Schedule = Union[float, Callable[[int], float]]
@@ -68,9 +69,12 @@ class RMSProp:
 
     def load_state_dict(self, state: Mapping) -> None:
         """Copy a `state_dict()` in; its `nu` must have the live names and
-        shapes (`copy_` would broadcast a wrong shape), checked before any
-        tensor is written."""
+        shapes (`copy_` would broadcast a wrong shape) and be float32, both
+        checked before any tensor is written."""
         validate_restored_shapes(state["nu"], self.nu, what="optimizer nu")
+        precision.assert_f32_accumulators(
+            {"optimizer_state": state["nu"].values()}, context="RMSProp.load_state_dict"
+        )
         for k, v in state["nu"].items():
             self.nu[k].copy_(v)
         self.count = int(state["count"])

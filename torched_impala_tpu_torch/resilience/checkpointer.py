@@ -1,4 +1,4 @@
-"""AsyncCheckpointer: the train loop never blocks on checkpoint disk I/O
+"""AsyncCheckpointer: the train loop never waits on checkpoint disk I/O
 (counterpart of `torched_impala_tpu/resilience/checkpointer.py`).
 
 The learner-thread half of a save is an interval check and, when a save
@@ -11,7 +11,9 @@ clones and hands both, through a depth-1 slot, to a writer thread that:
 1. makes its own copy stream wait on the event (a `.cpu()` on another
    thread's current stream is not ordered with the clones), marks each
    clone used on that stream (`record_stream`), copies the clones into
-   one of TWO reusable pinned host buffers and waits for its stream only;
+   one reusable pinned host buffer and waits for its stream only (one
+   writer captures and writes each save in turn, and nothing is
+   submitted while it is busy, so one buffer is never wanted twice);
 2. writes the state file atomically (utils/checkpoint.save_state_file);
 3. writes the run manifest (resilience/recovery.py) AFTER the state file,
    so a manifest always points at a complete checkpoint;
@@ -21,7 +23,10 @@ A save triggers every `interval_steps` learner steps or every
 `interval_seconds` wall seconds, whichever comes first; a trigger that
 finds the writer still busy is skipped, not queued, so the train loop
 cannot back up behind a slow disk. A writer error is raised by the next
-`maybe_save` or `wait`.
+`maybe_save` or `wait`. The learner thread never waits on the disk, but
+a save in flight slows the train step it overlaps: on an H100 the
+writer's host work (zip members, CRCs, fsyncs) took the step from about
+7 to 20 ms through the interpreter lock (PERF.md, "Open questions").
 
 The counters are plain attributes (`saves`, `skipped`, and per save
 `records`: step, whether `maybe_save` took it (its submit
@@ -92,9 +97,8 @@ class AsyncCheckpointer:
         self._idle = threading.Event()
         self._idle.set()
         self._stop = threading.Event()
-        # Two host buffers, {flat name: tensor}, reused save after save.
-        self._buffers: list = [None, None]
-        self._buf_idx = 0
+        # The host buffer, {flat name: tensor}, reused save after save.
+        self._buffer: dict = {}
         self._copy_stream: Optional[torch.cuda.Stream] = None
         self.saves = 0
         self.skipped = 0
@@ -199,12 +203,9 @@ class AsyncCheckpointer:
     # ---- writer thread --------------------------------------------------
 
     def _capture(self, state, ready) -> dict:
-        """The state's leaves copied into the next host buffer slot
-        ({flat name: leaf}); tensors of the right shape are reused, ints
-        pass through."""
-        i = self._buf_idx
-        self._buf_idx = (i + 1) % len(self._buffers)
-        old = self._buffers[i] or {}
+        """The state's leaves copied into the host buffer ({flat name:
+        leaf}); tensors of the right shape are reused, ints pass through."""
+        old = self._buffer
         flat = flat_state(state)
         stream = None
         if ready is not None:
@@ -234,7 +235,7 @@ class AsyncCheckpointer:
                 out[key] = dst
         if stream is not None:
             stream.synchronize()
-        self._buffers[i] = out
+        self._buffer = out
         return out
 
     def _writer_loop(self) -> None:

@@ -115,7 +115,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                    "passed since the last save (0 = steps only)")
     p.add_argument("--async-checkpoint", action="store_true",
                    help="interval saves by a writer thread, with run "
-                   "manifests, so the learner never blocks on disk")
+                   "manifests: the learner never waits on the disk, but a "
+                   "save in flight slows the step it overlaps")
     p.add_argument("--resume", nargs="?", const="auto", default=None,
                    choices=("auto",),
                    help="restore the newest checkpoint of --checkpoint-dir "

@@ -472,21 +472,16 @@ class Learner:
 
         Everything is checked before anything is replaced, so a bad state
         leaves the learner as it was: the params' names and shapes against
-        the live params, the same for `nu`, then the float32 rule for
-        `nu` (`Tensor.copy_` would broadcast a wrong shape silently). With
-        a trajectory ring, the slots a dead writer left half committed are
-        then discarded."""
-        opt_state = state["opt_state"]
+        the live params here, then `RMSProp.load_state_dict` checks `nu`'s
+        names, shapes and float32 rule before it writes `nu`, and only then
+        are the params written (`Tensor.copy_` would broadcast a wrong
+        shape silently). With a trajectory ring, the slots a dead writer
+        left half committed are then discarded."""
         validate_restored_shapes(state["params"], self._params, what="params")
-        validate_restored_shapes(opt_state["nu"], self._optimizer.nu, what="optimizer nu")
-        precision.assert_f32_accumulators(
-            {"optimizer_state": opt_state["nu"].values()},
-            context="Learner.set_state",
-        )
+        self._optimizer.load_state_dict(state["opt_state"])
         with torch.no_grad():
             for k, v in state["params"].items():
                 self._params[k].copy_(v)
-        self._optimizer.load_state_dict(opt_state)
         self.num_frames = int(state["num_frames"])
         self.num_steps = int(state["num_steps"])
         self._publish()

@@ -30,7 +30,7 @@ Checkpoint and resume (resilience/, utils/checkpoint.py):
 - `async_checkpointer` (a `resilience.AsyncCheckpointer`) takes the
   interval saves: a post-step hook hands an on-device clone of the state
   (`Learner.get_state_device`) to its writer thread when a save is due,
-  so the loop never blocks on disk; its cadence counts from the step the
+  so the loop never waits on the disk; its cadence counts from the step the
   run starts at. `checkpointer` (a synchronous `utils.checkpoint.
   Checkpointer`) saves every `checkpoint_interval` steps instead when
   there is no async checkpointer. Each writes a final save on a clean
