@@ -128,7 +128,28 @@ non-zero (no phase's failure is caught):
    LSTM(256) core, bf16 torso, 4 actions) as 4 thread actors x 8 envs
    for 12 learner steps, as pong_thread, once with the preset's unfused
    blocks and once with `fused_conv=True`.
-12. pong_transformer: the same with the PONG_TRANSFORMER preset
+12. breakout_accum: the BREAKOUT preset at full width with the fused
+   blocks, both memory levers (`grad_accum=2`, `remat_torso=True`), the
+   lr scaled by B / 16 with a 4-step warmup and `publish_interval=2`:
+   `loop.train` as in breakout for 12 steps (>= 2 V-trace, 42 LSTM-cell
+   and 24 residual-block launches a step); the param store's versions
+   must be the frame counts of steps 0, 2, ..., 12 and nothing else, and
+   the lr of each optimizer step at counts 0-5 `make_lr_schedule`'s.
+   Then, from the loop's final state, one train step alone on a fixed
+   batch with non-zero LSTM start states for (G, remat) = (1, off)
+   twice, (2, off), (1, on) and (2, on), each in a learner of its own
+   after one warm-up step: the (2, on) step launches V-trace 2, the LSTM
+   cell 42 and the residual block 24 times, and 12 with remat off; remat
+   on equals remat off bit for bit at G = 1 and 2, as the two plain steps
+   equal each other (if any of these pairs differs, every step is taken
+   again with cuDNN's deterministic algorithms and the pairs must then
+   agree; the line says which pairs differed without them); the (2, on)
+   step against the (1, off) step, by the relative L2 distance of their
+   param steps and by the unclipped grad norm: with an f32 torso both
+   within 1e-3, with the bf16 torso below the bf16 torso's own distance
+   and grad-norm change from the f32 one (plus 1e-3 of the grad norm);
+   each lever's peak device memory below (1, off)'s.
+13. pong_transformer: the same with the PONG_TRANSFORMER preset
    (Nature-CNN bf16 torso, transformer core d_model 256, 2 layers, 4
    heads, window 128) for 12 learner steps with the attention kernels
    forced and `fused_epilogue=True`; it must launch the attention
@@ -1032,8 +1053,8 @@ def sdpa_yardstick(x, device_calls):
     result = {}
     for name, fn in (("fwd", fwd), ("bwd", bwd)):
         result[f"sdpa_{name}_ms"] = time_cuda(fn, iters=device_calls, warmup=5)
-        kernels = profiling.device_us_by_kernel(fn, calls=device_calls)
-        result[f"sdpa_{name}_device_us"] = sum(kernels.values())
+        kernels = profiling.kernels_by_name(fn, calls=device_calls)
+        result[f"sdpa_{name}_device_us"] = sum(us for _, us in kernels.values())
         result[f"sdpa_{name}_kernels"] = sorted(kernels)
     return result
 
@@ -1301,10 +1322,12 @@ def fixed_batch(cfg, device, state):
     )
 
 
-def train_args(cfg, device):
-    """`loop.train`'s arguments for preset `cfg` on fake envs."""
+def train_args(cfg, device, learner_fields=None):
+    """`loop.train`'s arguments for preset `cfg` on fake envs;
+    `learner_fields` replace fields of its LearnerConfig."""
     from torched_impala_tpu_torch import configs
 
+    learner_config = dataclasses.replace(configs.make_learner_config(cfg), **(learner_fields or {}))
     return dict(
         env_factory=configs.make_env_factory(cfg, fake=True),
         num_actors=cfg.num_actors,
@@ -1312,13 +1335,14 @@ def train_args(cfg, device):
         actor_mode=cfg.actor_mode,
         pool_mode=cfg.pool_mode,
         pool_ready_fraction=cfg.pool_ready_fraction,
-        learner_config=configs.make_learner_config(cfg),
+        learner_config=learner_config,
         optimizer=configs.make_optimizer(cfg),
         device=device,
     )
 
 
-def drive(name, cfg, steps, device, standalone=True, at_step5=None, after=None):
+def drive(name, cfg, steps, device, standalone=True, at_step5=None, after=None,
+          learner_fields=None):
     """`loop.train` with `cfg` for `steps` learner steps on the card, every
     kernel's launch count set to 0 just before and read just after; then,
     with `standalone`, the train step alone on a fixed batch, one actor
@@ -1326,7 +1350,8 @@ def drive(name, cfg, steps, device, standalone=True, at_step5=None, after=None):
     device's idle share. `at_step5()` runs in the logger at the 5th
     learner step; its dict goes, as `seen`, to `after(result, seen)`,
     which runs after the run and returns a dict merged into the phase
-    line. Raises if the run did not train on the card."""
+    line. `learner_fields` replace fields of the LearnerConfig. Raises if
+    the run did not train on the card."""
     import torch
 
     from torched_impala_tpu_torch import configs
@@ -1348,7 +1373,8 @@ def drive(name, cfg, steps, device, standalone=True, at_step5=None, after=None):
     zero_launches()
     t0 = time.monotonic()
     result = loop.train(
-        agent=agent, total_steps=steps, logger=logger, log_every=1, **train_args(cfg, device)
+        agent=agent, total_steps=steps, logger=logger, log_every=1,
+        **train_args(cfg, device, learner_fields),
     )
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
@@ -1421,7 +1447,7 @@ def drive(name, cfg, steps, device, standalone=True, at_step5=None, after=None):
         loop.train(
             agent=configs.make_agent(cfg, seed=1),
             total_steps=PROFILED_STEPS,
-            **train_args(cfg, device),
+            **train_args(cfg, device, learner_fields),
         )
 
     t0 = time.perf_counter()
@@ -1789,6 +1815,258 @@ def phase_breakout(device, fused):
         raise AssertionError(f"{name}: {launches['resblock']} resblock launches < 6 a step")
     if not fused and launches["resblock"] != 0:
         raise AssertionError(f"{name}: {launches['resblock']} resblock launches, unfused")
+    return launches
+
+
+ACCUM_G = 2
+ACCUM_PUBLISH_INTERVAL = 2
+# One step at G = 2 with remat against one at G = 1 without, from the same
+# state, each held by the relative L2 distance of the two param steps,
+# ||p_a - p_b|| / ||p_b - p_0||, which no single element dominates:
+# RMSProp divides each grad by its own history, so an element whose grad
+# sums cancel to near 0 can land relatively far off (PERF.md §6). With an
+# f32 torso only the sum order changes, but a conv weight's grad sums
+# N * H * W = 672 * 42 * 42 = 1.2e6 products at the first section:
+# sqrt(1.2e6) * 2^-24 = 6.5e-5 of rounding walk, up to ten times that
+# where the sum cancels, so the distance and the grad norm within 1e-3.
+# With the preset's bf16 torso an activation can also round to the other
+# bf16 neighbour where cuDNN runs another algorithm at the microbatch's
+# N: the distance must stay below the bf16 torso's own distance from the
+# f32 torso (G = 1, no remat), and the grad norm within the bf16 torso's
+# own grad-norm change plus the f32 allowance.
+ACCUM_F32_RTOL = 1e-3
+
+
+def step_distance(a, b, before) -> float:
+    """||a - b|| / ||b - before|| over every param (float64 sums)."""
+    num = sum(float(((a[k] - b[k]).double() ** 2).sum()) for k in a)
+    den = sum(float(((b[k] - before[k]).double() ** 2).sum()) for k in a)
+    return math.sqrt(num / den)
+
+
+def accum_step(cfg, device, state, batch, grad_accum, remat, learner_fields, breakdown=False):
+    """A learner for `cfg` with `grad_accum` and `remat_torso=remat`, set to
+    `state`, takes one warm-up step on `batch` and is set to `state` again;
+    then one measured step. Returns its params after the step, logs,
+    launches, peak MB and peak MB above what was allocated before the
+    step, and with `breakdown` where a third step from `state` peaks
+    (`profiling.peak_live_blocks`; not with remat, whose recompute inside
+    the fused block's backward the allocator's stack recording does not
+    survive); the learner is dropped, so the next one's peak does not
+    count it."""
+    import torch
+
+    from torched_impala_tpu_torch import configs
+    from torched_impala_tpu_torch.ops import profiling
+    from torched_impala_tpu_torch.runtime.learner import Learner
+
+    cfg = dataclasses.replace(cfg, remat_torso=remat)
+    learner = Learner(
+        agent=configs.make_agent(cfg, seed=0),
+        optimizer=configs.make_optimizer(cfg),
+        config=dataclasses.replace(
+            configs.make_learner_config(cfg), **dict(learner_fields, grad_accum=grad_accum)
+        ),
+        device=device,
+    )
+    learner.set_state(state)
+    learner.train_step(batch)
+    learner.set_state(state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    zero_launches()
+    logs = learner.train_step(batch)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    out = dict(params={k: v.detach().clone() for k, v in learner.params.items()}, logs=logs,
+               launches=launches, peak_mb=peak / 2**20, step_peak_mb=(peak - before) / 2**20)
+    if breakdown:
+        learner.set_state(state)
+        out["breakdown"] = profiling.peak_live_blocks(lambda: learner.train_step(batch))
+    return out
+
+
+def phase_breakout_accum(device, smi):
+    """The BREAKOUT preset at full width with both memory levers, the
+    batch-scaled lr with warmup and a publish interval: `loop.train` for
+    BREAKOUT_STEPS steps on 4 thread actors x 8 envs, then checks of one
+    train step alone on a fixed batch (module docstring, phase 12)."""
+    import torch
+
+    from torched_impala_tpu_torch import configs
+    from torched_impala_tpu_torch.optim import RMSProp
+    from torched_impala_tpu_torch.runtime.param_store import ParamStore
+
+    cfg = dataclasses.replace(
+        configs.BREAKOUT,
+        actor_mode="thread",
+        num_actors=4,
+        envs_per_actor=8,
+        fused_conv=True,
+        remat_torso=True,
+        lr_scale_ref_batch=16,
+        lr_warmup_steps=4,
+    )
+    fields = dict(grad_accum=ACCUM_G, publish_interval=ACCUM_PUBLISH_INTERVAL)
+    assert cfg.num_actors * cfg.envs_per_actor == cfg.batch_size == 32
+    steps = BREAKOUT_STEPS
+    T, B = cfg.unroll_length, cfg.batch_size
+    # Every publish (store, version) and every optimizer step (optimizer,
+    # count, lr) of the run, recorded by wrapping the two methods.
+    published, stepped = [], []
+    publish, step = ParamStore.publish, RMSProp.step
+
+    def recording_publish(store, version, params):
+        published.append((id(store), version))
+        return publish(store, version, params)
+
+    def recording_step(opt, params, grads):
+        count = opt.count
+        step(opt, params, grads)
+        stepped.append((id(opt), count, opt.last_lr))
+
+    loop_state = {}
+
+    def after(result, seen):
+        learner = result.learner
+        loop_state["state"] = learner.get_state()
+        loop_state["versions"] = [v for store, v in published if store == id(learner.param_store)]
+        loop_state["lrs"] = {c: lr for opt, c, lr in stepped if opt == id(learner._optimizer)}
+        return dict(published_versions=loop_state["versions"], lr_by_count=loop_state["lrs"])
+
+    ParamStore.publish, RMSProp.step = recording_publish, recording_step
+    try:
+        launches = drive("breakout_accum", cfg, steps, device, after=after, learner_fields=fields)
+    finally:
+        ParamStore.publish, RMSProp.step = publish, step
+    # The loop's own checks: kernels of the path, publishes on crossings,
+    # the lr of each count.
+    if launches["vtrace"] < ACCUM_G * steps:
+        raise AssertionError(f"breakout_accum: {launches['vtrace']} vtrace launches < 2 a step")
+    if launches["lstm_cell"] < ACCUM_G * (T + 1) * steps:
+        raise AssertionError(f"breakout_accum: {launches['lstm_cell']} lstm launches < 42 a step")
+    if launches["resblock"] < 2 * 6 * ACCUM_G * steps:
+        raise AssertionError(f"breakout_accum: {launches['resblock']} resblock launches < 24 a step")
+    versions = loop_state["versions"]
+    frames = T * B
+    want_versions = [k * frames for k in range(0, steps + 1, ACCUM_PUBLISH_INTERVAL)]
+    if versions != want_versions:
+        raise AssertionError(f"breakout_accum: published versions {versions}, want {want_versions}")
+    schedule = configs.make_lr_schedule(cfg)
+    lrs = loop_state["lrs"]
+    for count in range(6):
+        if lrs.get(count) != schedule(count):
+            raise AssertionError(f"breakout_accum: lr {lrs.get(count)} at count {count}, "
+                                 f"schedule {schedule(count)}")
+
+    # One train step alone from the loop's final state, on a fixed batch
+    # with non-zero LSTM start states.
+    rng = np.random.default_rng(9)
+    start = tuple(
+        torch.from_numpy(rng.normal(size=(B, cfg.lstm_size)).astype(np.float32) * 0.5).to(device)
+        for _ in range(2)
+    )
+    batch = fixed_batch(cfg, device, start)
+    state = loop_state["state"]
+    runs = {}
+    for key in ((1, False), (1, False), (ACCUM_G, False), (1, True), (ACCUM_G, True)):
+        runs.setdefault(key, []).append(
+            accum_step(cfg, device, state, batch, *key, fields, breakdown=key == (1, False)))
+    def differing(a, b):
+        """The params (and the grad norm) in which two steps' bits differ,
+        with the largest difference of each."""
+        pa, pb = a["params"], b["params"]
+        out = {k: float((pa[k] - pb[k]).abs().max()) for k in pa if not torch.equal(pa[k], pb[k])}
+        if not torch.equal(a["logs"]["grad_norm_unclipped"], b["logs"]["grad_norm_unclipped"]):
+            out["grad_norm_unclipped"] = float(
+                (a["logs"]["grad_norm_unclipped"] - b["logs"]["grad_norm_unclipped"]).abs())
+        return out
+
+    def bit_checks():
+        pairs = {"two plain steps": runs[(1, False)]}
+        for G in (1, ACCUM_G):
+            pairs[f"remat on and off at G = {G}"] = (runs[(G, True)][0], runs[(G, False)][0])
+        return {name: diff for name, pair in pairs.items() if (diff := differing(*pair))}
+
+    # cuDNN may run convolutions with non-deterministic algorithms: if any
+    # pair differs, every step is taken again with deterministic ones and
+    # the pairs must then agree; the line reports both.
+    without_deterministic = bit_checks()
+    cudnn_deterministic = bool(without_deterministic)
+    failures = []
+    if cudnn_deterministic:
+        torch.backends.cudnn.deterministic = True
+        try:
+            for key in list(runs):
+                runs[key] = [accum_step(cfg, device, state, batch, *key, fields,
+                                        breakdown=key == (1, False)) for _ in runs[key]]
+        finally:
+            torch.backends.cudnn.deterministic = False
+        failures += [f"with deterministic cuDNN, {name} differ: {diff}"
+                     for name, diff in bit_checks().items()]
+
+    before = {k: v.to(device) for k, v in state["params"].items()}
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    f32 = {key: accum_step(cfg32, device, state, batch, *key, fields)
+           for key in ((1, False), (ACCUM_G, True))}
+    base, lever = runs[(1, False)][0], runs[(ACCUM_G, True)][0]
+    agreement = {}
+    for torso, (a, b) in (("f32", (f32[(ACCUM_G, True)], f32[(1, False)])), ("bf16", (lever, base))):
+        gn_a, gn_b = (float(r["logs"]["grad_norm_unclipped"]) for r in (a, b))
+        agreement[torso] = dict(step_distance=step_distance(a["params"], b["params"], before),
+                                grad_norm_G1=gn_b, grad_norm_G2_remat=gn_a)
+    gn_f32 = agreement["f32"]["grad_norm_G1"]
+    agreement["bf16"]["bf16_torso_step_distance_from_f32"] = step_distance(
+        base["params"], f32[(1, False)]["params"], before)
+    agreement["bf16"]["bf16_torso_grad_norm_change_from_f32"] = abs(
+        agreement["bf16"]["grad_norm_G1"] - gn_f32)
+    failures += [f"G2 + remat against G1, {name}: {agreement}" for name, ok in {
+        "f32 step distance": agreement["f32"]["step_distance"] <= ACCUM_F32_RTOL,
+        "f32 grad norm": abs(agreement["f32"]["grad_norm_G2_remat"] - gn_f32)
+        <= ACCUM_F32_RTOL * gn_f32,
+        "bf16 step distance": agreement["bf16"]["step_distance"]
+        < agreement["bf16"]["bf16_torso_step_distance_from_f32"],
+        "bf16 grad norm": abs(agreement["bf16"]["grad_norm_G2_remat"]
+                              - agreement["bf16"]["grad_norm_G1"])
+        <= agreement["bf16"]["bf16_torso_grad_norm_change_from_f32"] + ACCUM_F32_RTOL * gn_f32,
+    }.items() if not ok]
+
+    def label(G, remat):
+        return f"G{G}_remat_{'on' if remat else 'off'}"
+
+    step_launches = {label(*key): runs[key][0]["launches"] for key in runs}
+    want = {"vtrace": ACCUM_G, "lstm_cell": ACCUM_G * (T + 1), "resblock": 2 * 6 * ACCUM_G}
+    got = {k: step_launches[f"G{ACCUM_G}_remat_on"][k] for k in want}
+    if got != want:
+        failures.append(f"one step launched {got}, want {want}")
+    off = step_launches[f"G{ACCUM_G}_remat_off"]["resblock"]
+    if off != 6 * ACCUM_G:
+        failures.append(f"{off} resblock launches with remat off, want 12")
+    peaks = {label(*key): runs[key][0]["peak_mb"] for key in runs}
+    step_peaks = {label(*key): runs[key][0]["step_peak_mb"] for key in runs}
+    breakdown = runs[(1, False)][0]["breakdown"]
+    higher = [key for key, mb in peaks.items() if key != "G1_remat_off" and not mb < peaks["G1_remat_off"]]
+    if higher:
+        failures.append(f"the peak of {higher} is not below G1_remat_off's")
+    emit(
+        {
+            "phase": "breakout_accum_step",
+            "card": smi,
+            "cudnn_deterministic": cudnn_deterministic,
+            "bits_differ_without_deterministic_cudnn": {
+                name: dict(list(diff.items())[:5]) for name, diff in without_deterministic.items()},
+            "one_step_launches": step_launches,
+            "peak_mb": peaks,
+            "step_peak_mb_above_before": step_peaks,
+            "where_G1_remat_off_peaks": breakdown,
+            "G2_remat_vs_G1": agreement,
+            "failures": failures,
+        }
+    )
+    if failures:
+        raise AssertionError(f"breakout_accum: {failures}")
     return launches
 
 
@@ -2306,6 +2584,7 @@ def run_phases():
     phase_resume(device, smi)
     launches["lstm_cell"] = phase_breakout(device, fused=False)["lstm_cell"]
     launches["resblock"] = phase_breakout(device, fused=True)["resblock"]
+    phase_breakout_accum(device, smi)
     transformer_launches = phase_pong_transformer(device)
     for name in ("fused_loss_fwd", "fused_loss_bwd", "attention_fwd", "attention_bwd"):
         launches[name] = transformer_launches[name]

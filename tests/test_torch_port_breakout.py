@@ -20,6 +20,7 @@ params carried across by `params_from_jax`:
 import dataclasses
 import math
 
+import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -59,8 +60,9 @@ def _one_thread():
     torch.set_num_threads(prev)
 
 
-def _jax_net(dtype="float32", fused=False):
-    torso = JaxDeep(
+def _jax_net(dtype="float32", fused=False, remat=False):
+    torso_cls = nn.remat(JaxDeep) if remat else JaxDeep
+    torso = torso_cls(
         channel_sections=SECTIONS,
         hidden_size=HIDDEN,
         dtype=jnp.dtype(dtype),
@@ -69,11 +71,11 @@ def _jax_net(dtype="float32", fused=False):
     return JaxNet(num_actions=A, torso=torso, use_lstm=True, lstm_size=LSTM)
 
 
-def _port_net(dtype="float32", fused=False):
+def _port_net(dtype="float32", fused=False, remat=False):
     torso = AtariDeepTorso(
         4, HW, SECTIONS, 2, HIDDEN, dtype=dtype, fused_blocks=fused
     )
-    return ImpalaNet(A, torso, core="lstm", lstm_size=LSTM)
+    return ImpalaNet(A, torso, core="lstm", lstm_size=LSTM, remat_torso=remat)
 
 
 @pytest.fixture(scope="module")
@@ -172,7 +174,10 @@ def _learner_arrays(T, B, round_idx):
     return out
 
 
-def test_learner_matches_jax_learner_with_start_states():
+@pytest.mark.parametrize("grad_accum", [1, 2])
+def test_learner_matches_jax_learner_with_start_states(grad_accum):
+    """At G = 2 both learners split the batch and its LSTM start states
+    into two microbatches of one column."""
     T, B, steps = 3, 2, 3
     jlearner = JaxLearner(
         agent=JaxAgent(_jax_net()),
@@ -183,6 +188,7 @@ def test_learner_matches_jax_learner_with_start_states():
             loss=JaxLossConfig(vtrace_implementation="scan"),
             max_grad_norm=40.0,
             queue_capacity=steps * B,
+            grad_accum=grad_accum,
         ),
         example_obs=np.zeros((*HW, 4), np.uint8),
         rng=jax.random.key(0),
@@ -192,7 +198,7 @@ def test_learner_matches_jax_learner_with_start_states():
     learner = Learner(
         agent=Agent(net),
         optimizer=RMSProp(LR, decay=DECAY, eps=EPS),
-        config=LearnerConfig(batch_size=B, unroll_length=T),
+        config=LearnerConfig(batch_size=B, unroll_length=T, grad_accum=grad_accum),
         device=torch.device("cpu"),
     )
     learner.start()
@@ -314,18 +320,109 @@ def test_train_breakout_slice_on_cpu(fused):
     assert (lstm_cuda.LAUNCHES, conv_block_cuda.LAUNCHES) == launches
 
 
-@pytest.mark.parametrize("extra", ["", " --fused-conv"], ids=["unfused", "fused"])
+@pytest.mark.parametrize(
+    "extra",
+    ["", " --fused-conv", " --grad-accum 2 --remat-torso"],
+    ids=["unfused", "fused", "accum_remat"],
+)
 def test_breakout_cli_returns_zero(capsys, extra):
-    """The Breakout CPU command of README.md, with and without --fused-conv."""
+    """The Breakout CPU command of README.md, with and without --fused-conv,
+    and with both memory levers."""
     from pathlib import Path
 
     readme = " ".join(
         (Path(__file__).resolve().parents[1] / "README.md").read_text().replace("\\\n", " ").split()
     )
     assert f"python -m torched_impala_tpu_torch.run {run.BREAKOUT_CPU_EXAMPLE}" in readme
+    if "--grad-accum" in extra:
+        assert f"python -m torched_impala_tpu_torch.run {run.BREAKOUT_CPU_EXAMPLE}{extra}" in readme
     rc = run.main((run.BREAKOUT_CPU_EXAMPLE + extra).split())
     assert rc == 0
     assert "done: steps=3" in capsys.readouterr().out
+
+
+def test_breakout_cli_refuses_grad_accum_zero():
+    """--grad-accum 0 reaches the learner's check and fails, as in JAX
+    (no truthiness filter)."""
+    with pytest.raises(ValueError, match="grad_accum must be >= 1, got 0"):
+        run.main((run.BREAKOUT_CPU_EXAMPLE + " --grad-accum 0").split())
+
+
+def _scalar_weights(seed, T=5, B=3):
+    rng = np.random.default_rng(seed)
+    return (
+        rng.normal(size=(T, B, A)).astype(np.float32),
+        rng.normal(size=(T, B, 1)).astype(np.float32),
+        rng.normal(size=(B, LSTM)).astype(np.float32),
+    )
+
+
+def _port_grads(net, inputs, weights):
+    """The unroll's outputs and the grads by name of a fixed scalar of the
+    logits, values and final carry."""
+    obs, first, state = inputs
+    wl, wv, wc = map(torch.from_numpy, weights)
+    out, (c, h) = Agent(net).unroll(
+        torch.from_numpy(obs), torch.from_numpy(first), tuple(map(torch.from_numpy, state))
+    )
+    scalar = (out.policy_logits * wl).sum() + (out.values * wv).sum() + (h * wc).sum()
+    names = [k for k, _ in net.named_parameters()]
+    grads = torch.autograd.grad(scalar, [p for _, p in net.named_parameters()])
+    return out, dict(zip(names, grads))
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+def test_remat_torso_matches_jax_and_the_plain_net(flax_params, fused):
+    """`remat_torso=True` keeps the state_dict names (no wrapper prefix:
+    `params_from_jax` and saved checkpoints load unchanged). Its outputs
+    equal the JAX remat net's at F32 and its grads at rtol 1e-4, atol
+    1e-5 (f32 sums over the torso's pixels in another order); against the
+    port without remat the outputs and grads are the same bits on the CPU
+    (each stage's forward runs again in the backward, with the same
+    inputs)."""
+    inputs, weights = _unroll_inputs(3), _scalar_weights(4)
+    plain, remat = _port_net(fused=fused), _port_net(fused=fused, remat=True)
+    assert list(remat.state_dict()) == list(plain.state_dict())
+    block_calls = {id(plain): 0, id(remat): 0}
+    for net in (plain, remat):
+        net.load_state_dict(params_from_jax(flax_params))
+        for name, block in net.torso.named_children():
+            if name.startswith("ResidualBlock_"):
+
+                def counted(x, key=id(net), forward=block.forward):
+                    block_calls[key] += 1
+                    return forward(x)
+
+                block.forward = counted
+    out, grads = _port_grads(remat, inputs, weights)
+    plain_out, plain_grads = _port_grads(plain, inputs, weights)
+    # The backward ran each of the six blocks' forward again: remat was on.
+    assert (block_calls[id(plain)], block_calls[id(remat)]) == (6, 12)
+    assert torch.equal(out.policy_logits, plain_out.policy_logits)
+    assert torch.equal(out.values, plain_out.values)
+    for name, g in grads.items():
+        assert torch.equal(g, plain_grads[name]), name
+
+    obs, first, state = map(lambda x: jax.tree.map(jnp.asarray, x), inputs)
+    wl, wv, wc = map(jnp.asarray, weights)
+    jagent = JaxAgent(_jax_net(fused=fused, remat=True))
+
+    def scalar(params):
+        jout, (jc, jh) = jagent.unroll(params, obs, first, state)
+        return (jout.policy_logits * wl).sum() + (jout.values * wv).sum() + (jh * wc).sum(), jout
+
+    (_, jout), jgrads = jax.value_and_grad(scalar, has_aux=True)(
+        jax.tree.map(jnp.asarray, flax_params)
+    )
+    np.testing.assert_allclose(
+        out.policy_logits.detach().numpy(), np.asarray(jout.policy_logits), **F32
+    )
+    np.testing.assert_allclose(out.values.detach().numpy(), np.asarray(jout.values), **F32)
+    want = params_from_jax(jax.tree.map(np.asarray, jgrads))
+    for name, g in grads.items():
+        np.testing.assert_allclose(
+            g.numpy(), want[name].numpy(), rtol=1e-4, atol=1e-5, err_msg=name
+        )
 
 
 def test_breakout_preset_keeps_the_jax_values():

@@ -1180,6 +1180,173 @@ def test_async_save_is_ordered_after_the_clones_on_the_learner_stream(cuda, tmp_
             assert int(got[key]) == int(x), key
 
 
+def _per_tensor_rmsprop(params, grads, nus, lr, decay, eps):
+    """The per-tensor loop the multi-tensor step replaced: optax's formula,
+    one tensor at a time."""
+    for p, g, nu in zip(params, grads, nus):
+        nu.mul_(decay).add_((1.0 - decay) * torch.square(g))
+        p.sub_(lr * (g * torch.rsqrt(nu + eps)))
+
+
+@pytest.mark.gpu
+def test_foreach_update_and_norm_match_the_per_tensor_loop(cuda):
+    """`RMSProp.step` and `global_norm` as multi-tensor ops on the card,
+    at the Breakout preset's 39 parameter shapes, against the per-tensor
+    loop over 3 steps: the same f32 operations in the same order, so
+    params and nu agree at rtol 1e-6, atol 1e-7 (an ulp where a multi-
+    tensor kernel's rsqrt or product rounds differently); the global norm
+    (a norm of per-tensor norms against one sum of squares) at rtol 1e-5."""
+    from torched_impala_tpu_torch import configs
+    from torched_impala_tpu_torch.optim import RMSProp
+    from torched_impala_tpu_torch.runtime.learner import global_norm
+
+    shapes = {k: p.shape for k, p in configs.make_agent(configs.BREAKOUT).net.named_parameters()}
+    assert len(shapes) == 39
+    gen = torch.Generator(device=cuda).manual_seed(0)
+
+    def randn(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=cuda) * scale
+
+    params = {k: randn(s) for k, s in shapes.items()}
+    loop_params = [p.clone() for p in params.values()]
+    opt = RMSProp(3e-4, decay=0.99, eps=1e-7)
+    opt.init(params)
+    loop_nus = [torch.zeros_like(p) for p in loop_params]
+    for _ in range(3):
+        grads = {k: randn(s, 0.01) for k, s in shapes.items()}
+        want = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads.values()))
+        torch.testing.assert_close(global_norm(grads.values()), want, rtol=1e-5, atol=0)
+        opt.step(params, grads)
+        _per_tensor_rmsprop(loop_params, list(grads.values()), loop_nus, 3e-4, 0.99, 1e-7)
+    for p, q in zip(params.values(), loop_params):
+        torch.testing.assert_close(p, q, rtol=1e-6, atol=1e-7)
+    for nu, q in zip(opt.nu.values(), loop_nus):
+        torch.testing.assert_close(nu, q, rtol=1e-6, atol=1e-7)
+
+
+def _breakout_grads(cuda, remat, obs, first, state, weights):
+    """Grads by name of a fixed scalar of the fused-block Breakout net's
+    unroll (bf16 torso, random params from seed 0)."""
+    import dataclasses
+
+    from torched_impala_tpu_torch import configs
+
+    cfg = dataclasses.replace(configs.BREAKOUT, fused_conv=True, remat_torso=remat)
+    net = configs.make_agent(cfg, seed=0).net.to(cuda)
+    out, (c, h) = net(obs, first, state, unroll=True)
+    wl, wv, wc = weights
+    scalar = (out.policy_logits * wl).sum() + (out.values * wv).sum() + (h * wc).sum()
+    names = [k for k, _ in net.named_parameters()]
+    return dict(zip(names, torch.autograd.grad(scalar, [p for _, p in net.named_parameters()])))
+
+
+def _same_grads(a, b):
+    return all(torch.equal(a[k], b[k]) for k in a)
+
+
+@pytest.mark.gpu
+def test_remat_torso_grads_equal_the_plain_net_bit_for_bit(cuda):
+    """The Breakout net with the fused residual blocks (bf16 torso, full
+    widths) at T + 1 = 5, B = 4: with `remat_torso` the grads are those
+    without, bit for bit, as two runs without are, the block's forward
+    kernel launching twice as often. The cuDNN setting is the
+    breakout_accum phase's: the default, unless a pair differs, then all
+    three runs again with the deterministic algorithms."""
+    from torched_impala_tpu_torch.ops import conv_block_cuda
+
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    obs = torch.randint(0, 256, (5, 4, 84, 84, 4), generator=gen, device=cuda, dtype=torch.uint8)
+    first = torch.zeros(5, 4, dtype=torch.bool, device=cuda)
+    first[2, 1] = True
+    state = tuple(torch.randn(4, 256, generator=gen, device=cuda) * 0.5 for _ in range(2))
+    weights = (torch.randn(5, 4, 4, generator=gen, device=cuda),
+               torch.randn(5, 4, 1, generator=gen, device=cuda),
+               torch.randn(4, 256, generator=gen, device=cuda))
+    args = (obs, first, state, weights)
+
+    def grads_and_launches(remat):
+        before = conv_block_cuda.LAUNCHES
+        grads = _breakout_grads(cuda, remat, *args)
+        return grads, conv_block_cuda.LAUNCHES - before
+
+    def pairs_agree():
+        (plain, n_plain), (again, _), (remat, n_remat) = (
+            grads_and_launches(False), grads_and_launches(False), grads_and_launches(True))
+        assert (n_plain, n_remat) == (6, 12)
+        return _same_grads(plain, again) and _same_grads(remat, plain)
+
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        if not pairs_agree():
+            torch.backends.cudnn.deterministic = True
+            assert pairs_agree()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _step_distance(a, b, before):
+    """||a - b|| / ||b - before|| over every param (float64 sums)."""
+    num = sum(float(((a[k] - b[k]).double() ** 2).sum()) for k in a)
+    den = sum(float(((b[k] - before[k]).double() ** 2).sum()) for k in a)
+    return (num / den) ** 0.5
+
+
+@pytest.mark.gpu
+def test_grad_accum_breakout_step_matches_the_full_batch(cuda):
+    """One Breakout learner step (the preset at full width, fused blocks,
+    T = 20, B = 32) at G = 2 with remat against G = 1 without, from the
+    same fresh state, at the breakout_accum phase's tolerances: by the
+    relative L2 distance of the two param steps and the unclipped grad
+    norm, with an f32 torso both within 1e-3 (sums of up to 1.2e6
+    products in another order), with the bf16 torso below the bf16
+    torso's own distance and grad-norm change from the f32 one, plus 1e-3
+    of the grad norm (an activation may round to the other bf16
+    neighbour at the microbatch's N)."""
+    import dataclasses
+
+    import numpy as np
+
+    from torched_impala_tpu_torch import configs
+    from torched_impala_tpu_torch.runtime.learner import Learner
+
+    rng = np.random.default_rng(5)
+    T, B, A = 20, 32, 4
+
+    def dev(a):
+        return torch.from_numpy(a).to(cuda)
+
+    batch = (
+        dev(rng.integers(0, 256, size=(T + 1, B, 84, 84, 4), dtype=np.uint8)),
+        dev(rng.uniform(size=(T + 1, B)) < 0.05),
+        dev(rng.integers(0, A, size=(T, B))),
+        dev(rng.normal(size=(T, B, A)).astype(np.float32)),
+        dev((rng.uniform(size=(T, B)) < 0.05).astype(np.float32)),
+        dev(np.ones((T, B), np.float32)),
+        tuple(dev(rng.normal(size=(B, 256)).astype(np.float32) * 0.5) for _ in range(2)),
+    )
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        for G, remat in ((1, False), (2, True)):
+            cfg = dataclasses.replace(configs.BREAKOUT, fused_conv=True, remat_torso=remat,
+                                      compute_dtype=dtype)
+            learner = Learner(
+                agent=configs.make_agent(cfg, seed=0),
+                optimizer=configs.make_optimizer(cfg),
+                config=dataclasses.replace(configs.make_learner_config(cfg), grad_accum=G),
+                device=cuda,
+            )
+            before = {k: v.detach().clone() for k, v in learner.params.items()}
+            logs = learner.train_step(batch)
+            out[dtype, G] = ({k: v.detach().clone() for k, v in learner.params.items()},
+                             float(logs["grad_norm_unclipped"]))
+    (p32, n32), (p32g, n32g) = out["float32", 1], out["float32", 2]
+    (p16, n16), (p16g, n16g) = out["bfloat16", 1], out["bfloat16", 2]
+    assert _step_distance(p32g, p32, before) <= 1e-3
+    assert abs(n32g - n32) <= 1e-3 * n32
+    assert _step_distance(p16g, p16, before) < _step_distance(p16, p32, before)
+    assert abs(n16g - n16) <= abs(n16 - n32) + 1e-3 * n32
+
+
 def test_wrappers_refuse_cpu_tensors():
     """No fallback in a wrapper: a CPU tensor raises before any build."""
     from torched_impala_tpu_torch.ops import (

@@ -42,9 +42,10 @@ from torched_impala_tpu_torch.models.agent import Agent
 from torched_impala_tpu_torch.models.convert import params_from_jax, state_from_jax
 from torched_impala_tpu_torch.models.nets import ImpalaNet
 from torched_impala_tpu_torch.models.torsos import AtariShallowTorso, MLPTorso
+from torched_impala_tpu_torch.ops.losses import ImpalaLossConfig
 from torched_impala_tpu_torch.optim import RMSProp
 from torched_impala_tpu_torch.runtime.learner import Learner, LearnerConfig
-from torched_impala_tpu_torch.runtime.learner import stack_trajectories
+from torched_impala_tpu_torch.runtime.learner import split_batch, stack_trajectories
 from torched_impala_tpu_torch.runtime.types import Trajectory
 
 STEPS = 3
@@ -95,7 +96,9 @@ def _arrays(kind, T, B, round_idx):
     return out
 
 
-def _build(kind, T, B, max_grad_norm=40.0):
+def _build(kind, T, B, max_grad_norm=40.0, reduction="sum", **fields):
+    """The JAX learner and the port's from the same flax params; `fields`
+    (grad_accum, publish_interval, ...) go to both LearnerConfigs."""
     core = {}
     if kind in ("mlp", "lstm"):
         jtorso, torso = JaxMLP(hidden_sizes=(16, 16)), MLPTorso(4, (16, 16))
@@ -111,9 +114,10 @@ def _build(kind, T, B, max_grad_norm=40.0):
         config=JaxLearnerConfig(
             batch_size=B,
             unroll_length=T,
-            loss=JaxLossConfig(vtrace_implementation="scan"),
+            loss=JaxLossConfig(vtrace_implementation="scan", reduction=reduction),
             max_grad_norm=max_grad_norm,
             queue_capacity=STEPS * B,
+            **fields,
         ),
         example_obs=example,
         rng=jax.random.key(0),
@@ -123,7 +127,13 @@ def _build(kind, T, B, max_grad_norm=40.0):
     learner = Learner(
         agent=Agent(net),
         optimizer=RMSProp(LR, decay=DECAY, eps=EPS),
-        config=LearnerConfig(batch_size=B, unroll_length=T, max_grad_norm=max_grad_norm),
+        config=LearnerConfig(
+            batch_size=B,
+            unroll_length=T,
+            loss=ImpalaLossConfig(reduction=reduction),
+            max_grad_norm=max_grad_norm,
+            **fields,
+        ),
         device=torch.device("cpu"),
     )
     return jlearner, learner
@@ -333,15 +343,39 @@ def test_stack_trajectories_matches_jax():
         np.testing.assert_array_equal(getattr(ours, field), getattr(theirs, field))
 
 
-def test_rmsprop_and_schedule_match_optax():
-    """The hand-written RMSProp under the preset's linear anneal tracks
+SCHEDULES = {
+    "anneal": {},
+    "warmup_anneal_scaled": dict(lr_warmup_steps=2, lr_scale_ref_batch=16),
+    "warmup_constant": dict(lr_warmup_steps=3, lr_anneal=False),
+    "scaled_constant": dict(lr_scale_ref_batch=64, lr_anneal=False),
+}
+
+
+@pytest.mark.parametrize("schedule", list(SCHEDULES))
+def test_rmsprop_and_schedule_match_optax(schedule):
+    """The hand-written RMSProp under `make_lr_schedule(cfg)` tracks
     optax.rmsprop(make_lr_schedule(cfg)) over steps that cross the end
-    of the schedule (eps inside the sqrt, nu from 0, lr by count)."""
+    of the schedule (eps inside the sqrt, nu from 0, lr by count): the
+    preset's linear anneal, a warmup into the anneal with the base lr
+    scaled by B / lr_scale_ref_batch, a warmup into a constant, and a
+    scaled constant. `scaled_base_lr` and the schedule's values at counts
+    0-7 equal JAX's."""
     import dataclasses
 
-    cfg = dataclasses.replace(configs.PONG, total_env_frames=4 * 640)
-    jcfg = dataclasses.replace(jax_configs.PONG, total_env_frames=4 * 640)
+    fields = dict(total_env_frames=4 * 640, **SCHEDULES[schedule])
+    cfg = dataclasses.replace(configs.PONG, **fields)
+    jcfg = dataclasses.replace(jax_configs.PONG, **fields)
     assert cfg.total_learner_steps == jcfg.total_learner_steps == 4
+    assert configs.scaled_base_lr(cfg) == jax_configs.scaled_base_lr(jcfg)
+    ours, theirs = configs.make_lr_schedule(cfg), jax_configs.make_lr_schedule(jcfg)
+    assert callable(ours) == callable(theirs)
+    for count in range(8):
+        np.testing.assert_allclose(
+            ours(count) if callable(ours) else ours,
+            float(theirs(count)) if callable(theirs) else theirs,
+            rtol=1e-6,
+            err_msg=f"lr at count {count}",
+        )
     rng = np.random.default_rng(0)
     p0 = rng.normal(size=(5, 3)).astype(np.float32)
     jopt = jax_configs.make_optimizer(jcfg)
@@ -358,3 +392,172 @@ def test_rmsprop_and_schedule_match_optax():
         np.testing.assert_allclose(
             params["w"].numpy(), np.asarray(jp), rtol=1e-6, atol=1e-7
         )
+
+
+def _port_only(kind, T, B, optimizer=None, **fields):
+    """The port's learner alone, params from torch seed 0 (the same net for
+    every call with the same `kind`)."""
+    g = torch.Generator().manual_seed(0)
+    core = dict(core="lstm", lstm_size=LSTM) if kind == "lstm" else {}
+    net = ImpalaNet(A, MLPTorso(4, (16, 16), generator=g), generator=g, **core)
+    return Learner(
+        agent=Agent(net),
+        optimizer=optimizer or RMSProp(LR, decay=DECAY, eps=EPS),
+        config=LearnerConfig(batch_size=B, unroll_length=T, **fields),
+        device=torch.device("cpu"),
+        example_obs=np.zeros((4,), np.float32),
+    )
+
+
+def _device_batch(learner, kind, T, B, round_idx):
+    return learner._to_device(
+        stack_trajectories([Trajectory(**a) for a in _arrays(kind, T, B, round_idx)])
+    )
+
+
+@pytest.mark.parametrize("reduction", ["sum", "mean"])
+@pytest.mark.parametrize("kind", ["mlp", "lstm"])
+def test_grad_accum_matches_jax(kind, reduction):
+    """G = 2 microbatches in the port against the JAX learner's microbatch
+    scan at G = 2, MLP and LSTM (start states split by rows), both
+    reductions: the trajectory test's tolerances over STEPS steps (JAX
+    tests/test_learner.py TestGradAccum holds G against G = 1 there)."""
+    T, B = 5, 4
+    jlearner, learner = _build(kind, T, B, reduction=reduction, grad_accum=2)
+    _assert_steps_match(jlearner, learner, kind, T, B)
+
+
+@pytest.mark.parametrize("reduction", ["sum", "mean"])
+@pytest.mark.parametrize("kind", ["mlp", "lstm"])
+def test_grad_accum_takes_the_full_batch_step(kind, reduction):
+    """The port at G = 2 against the port at G = 1 on the same batches and
+    params: the full batch's update. The grads are f32 sums taken in
+    another order (two microbatch sums added), so params agree at rtol
+    1e-5, atol 1e-7 and the logs at rtol 1e-5, atol 1e-6."""
+    T, B = 5, 4
+    whole, accum = _port_only(kind, T, B), _port_only(kind, T, B, grad_accum=2)
+    for r in range(STEPS):
+        batch = _device_batch(whole, kind, T, B, r)
+        want, got = whole.train_step(batch), accum.train_step(batch)
+        for key in (*LOG_KEYS, "entropy", "weight_norm"):
+            np.testing.assert_allclose(
+                float(got[key]), float(want[key]), rtol=1e-5, atol=1e-6,
+                err_msg=f"step {r} log {key}",
+            )
+        for name, p in accum.params.items():
+            np.testing.assert_allclose(
+                p.detach().numpy(), whole.params[name].detach().numpy(),
+                rtol=1e-5, atol=1e-7, err_msg=f"step {r} param {name}",
+            )
+
+
+def test_split_batch_takes_jax_column_order():
+    """Microbatch g holds columns g*Bm ... (g+1)*Bm - 1 of each [T, B, ...]
+    array (JAX's reshape to [T, G, Bm, ...] then swapaxes) and those rows
+    of the start state, each contiguous."""
+    T, B, G = 3, 6, 3
+    x = torch.arange((T + 1) * B * 2).reshape(T + 1, B, 2)
+    state = (torch.arange(B * 4).reshape(B, 4), torch.arange(B * 4).reshape(B, 4) + 100)
+    arrays = (x, x[..., 0], x[:-1], x[:-1], x[:-1, :, 0], x[:-1, :, 0], state)
+    micro = split_batch(arrays, G)
+    want = np.swapaxes(x.numpy().reshape(T + 1, G, B // G, 2), 0, 1)
+    assert len(micro) == G
+    for g, m in enumerate(micro):
+        np.testing.assert_array_equal(m[0].numpy(), want[g])
+        np.testing.assert_array_equal(m[6][1].numpy(), state[1][g * 2 : (g + 1) * 2].numpy())
+        assert all(t.is_contiguous() for t in (*m[:6], *m[6]))
+
+
+@pytest.mark.parametrize(
+    "G,B,message",
+    [(0, 4, "grad_accum must be >= 1, got 0"), (2, 3, "batch_size 3 not divisible by grad_accum 2")],
+    ids=["zero", "indivisible"],
+)
+def test_grad_accum_refusals_match_jax(G, B, message):
+    """The port refuses what the JAX learner refuses, with its message:
+    no quiet G = 1."""
+    import re
+
+    with pytest.raises(ValueError, match=re.escape(message)):
+        _port_only("mlp", 4, B, grad_accum=G)
+    with pytest.raises(ValueError, match=re.escape(message)):
+        JaxLearner(
+            agent=JaxAgent(JaxNet(num_actions=A, torso=JaxMLP(hidden_sizes=(16, 16)))),
+            optimizer=optax.rmsprop(LR, decay=DECAY, eps=EPS),
+            config=JaxLearnerConfig(batch_size=B, unroll_length=4, grad_accum=G),
+            example_obs=np.zeros((4,), np.float32),
+            rng=jax.random.key(0),
+        )
+
+
+def test_queue_sizes_follow_the_config():
+    """queue_capacity None is 2 * batch_size (JAX's rule with one step a
+    dispatch); device_queue_depth sizes the device queue and the ring's
+    slots (depth + 2)."""
+    learner = _port_only("mlp", 4, 3)
+    assert (learner._traj_q.maxsize, learner._batch_q.maxsize) == (6, 2)
+    learner = _port_only("mlp", 4, 3, queue_capacity=7, device_queue_depth=3, traj_ring=True)
+    assert (learner._traj_q.maxsize, learner._batch_q.maxsize) == (7, 3)
+    assert learner.traj_ring.num_slots == 5
+    learner.stop()
+
+
+def test_publish_interval_publishes_on_crossings_and_set_state_at_once():
+    """With publish_interval=3 the param store's version moves only when
+    the step count crosses a multiple of 3, and then to that step's frame
+    count; `set_state` republishes at once."""
+    T, B, steps = 4, 2, 5
+    frames = T * B
+    learner = _port_only("mlp", T, B, publish_interval=3, queue_capacity=steps * B)
+    versions, live_at_3 = [], None
+    learner.start()
+    try:
+        for r in range(steps):
+            for a in _arrays("mlp", T, B, r):
+                learner.enqueue(Trajectory(**a))
+        for step in range(1, steps + 1):
+            learner.step_once(timeout=60)
+            versions.append(learner.param_store.get(timeout=1)[0])
+            if step == 3:
+                live_at_3 = {k: v.detach().clone() for k, v in learner.params.items()}
+    finally:
+        learner.stop()
+        learner.join()
+    assert versions == [0, 0, 3 * frames, 3 * frames, 3 * frames]
+    _, published = learner.param_store.get(timeout=1)
+    for name, p in published.items():
+        assert torch.equal(p, live_at_3[name]), name
+    learner.set_state(learner.get_state())
+    version, published = learner.param_store.get(timeout=1)
+    assert version == steps * frames
+    for name, p in published.items():
+        assert torch.equal(p, learner.params[name].detach()), name
+
+
+def test_resume_mid_warmup_takes_the_uninterrupted_lr():
+    """A run restored through get_state/set_state inside the warmup takes
+    its next step at the lr of the uninterrupted run (the schedule is
+    indexed by the restored count, on the ramp), which is JAX's schedule
+    at that count, and lands on the same params bit for bit."""
+    import dataclasses
+
+    T, B = 4, 2
+    fields = dict(batch_size=B, unroll_length=T, lr_warmup_steps=4, lr_scale_ref_batch=4)
+    cfg = dataclasses.replace(configs.CARTPOLE, **fields)
+    jcfg = dataclasses.replace(jax_configs.CARTPOLE, **fields)
+    straight = _port_only("mlp", T, B, optimizer=configs.make_optimizer(cfg))
+    first = _port_only("mlp", T, B, optimizer=configs.make_optimizer(cfg))
+    for r in range(2):
+        straight.train_step(_device_batch(straight, "mlp", T, B, r))
+        first.train_step(_device_batch(first, "mlp", T, B, r))
+    resumed = _port_only("mlp", T, B, optimizer=configs.make_optimizer(cfg))
+    resumed.set_state(first.get_state())
+    batch = _device_batch(straight, "mlp", T, B, 2)
+    straight.train_step(batch)
+    resumed.train_step(batch)
+    lr = resumed._optimizer.last_lr
+    assert lr == straight._optimizer.last_lr
+    assert 0 < lr < configs.scaled_base_lr(cfg)
+    np.testing.assert_allclose(lr, float(jax_configs.make_lr_schedule(jcfg)(2)), rtol=1e-6)
+    for name, p in resumed.params.items():
+        assert torch.equal(p, straight.params[name]), name

@@ -171,3 +171,36 @@ def test_agent_step_samples_valid_actions():
     assert out.action.shape == (7,)
     assert int(out.action.min()) >= 0 and int(out.action.max()) < A
     assert out.policy_logits.shape == (7, A)
+
+
+@pytest.mark.parametrize("kind", ["mlp", "atari"])
+def test_remat_torso_is_the_plain_torso_bit_for_bit(kind):
+    """`remat_torso` on the MLP and Nature-CNN torsos (each layer its own
+    checkpoint): the same param names, and the same outputs and grads of
+    an unroll bit for bit on the CPU, each layer's forward run again in
+    the backward; a step under no grad is the plain step."""
+    rng = np.random.default_rng(7)
+    if kind == "mlp":
+        obs = torch.from_numpy(rng.normal(size=(3, 2, 4)).astype(np.float32))
+    else:
+        obs = torch.from_numpy(rng.integers(0, 256, size=(3, 2, 84, 84, 4), dtype=np.uint8))
+    first = torch.zeros(3, 2, dtype=torch.bool)
+    nets = []
+    for remat in (False, True):
+        g = torch.Generator().manual_seed(0)
+        torso = MLPTorso(4, (16, 16), generator=g) if kind == "mlp" else AtariShallowTorso(4, generator=g)
+        nets.append(ImpalaNet(6, torso, generator=g, remat_torso=remat))
+    plain, remat = nets
+    assert list(plain.state_dict()) == list(remat.state_dict())
+    results = []
+    for net in nets:
+        out, _ = net(obs, first, (), unroll=True)
+        scalar = out.policy_logits.square().sum() + out.values.sum()
+        results.append((out, torch.autograd.grad(scalar, list(net.parameters()))))
+    (out_p, grads_p), (out_r, grads_r) = results
+    assert torch.equal(out_p.policy_logits, out_r.policy_logits)
+    assert all(torch.equal(a, b) for a, b in zip(grads_p, grads_r))
+    with torch.no_grad():
+        step_p, _ = plain(obs[0], first[0], ())
+        step_r, _ = remat(obs[0], first[0], ())
+    assert torch.equal(step_p.policy_logits, step_r.policy_logits)

@@ -356,8 +356,13 @@ def _learner_arrays(Tu, Bu, round_idx):
     return out
 
 
-@pytest.mark.parametrize("fused", [False, True], ids=["separate", "fused"])
-def test_learner_matches_jax_learner(fused):
+@pytest.mark.parametrize(
+    "fused,grad_accum", [(False, 1), (True, 1), (True, 2)], ids=["separate", "fused", "fused_accum2"]
+)
+def test_learner_matches_jax_learner(fused, grad_accum):
+    """At G = 2 both learners split the batch and its transformer start
+    states (KV cache, segments, positions) into two microbatches of one
+    column each, the fused loss at [T, 1, A]."""
     Tu, Bu, steps = 4, 2, 3
     jlearner = JaxLearner(
         agent=JaxAgent(_jax_net()),
@@ -368,6 +373,7 @@ def test_learner_matches_jax_learner(fused):
             loss=JaxLossConfig(vtrace_implementation="scan", fused_epilogue=fused),
             max_grad_norm=40.0,
             queue_capacity=steps * Bu,
+            grad_accum=grad_accum,
         ),
         example_obs=np.zeros((4,), np.float32),
         rng=jax.random.key(0),
@@ -378,7 +384,10 @@ def test_learner_matches_jax_learner(fused):
         agent=Agent(net),
         optimizer=RMSProp(LR, decay=DECAY, eps=EPS),
         config=LearnerConfig(
-            batch_size=Bu, unroll_length=Tu, loss=losses.ImpalaLossConfig(fused_epilogue=fused)
+            batch_size=Bu,
+            unroll_length=Tu,
+            loss=losses.ImpalaLossConfig(fused_epilogue=fused),
+            grad_accum=grad_accum,
         ),
         device=torch.device("cpu"),
     )

@@ -18,7 +18,12 @@ from torched_impala_tpu_torch.models.torsos import (
     MLPTorso,
 )
 from torched_impala_tpu_torch.ops.losses import ImpalaLossConfig
-from torched_impala_tpu_torch.optim import RMSProp, linear_schedule
+from torched_impala_tpu_torch.optim import (
+    RMSProp,
+    constant_schedule,
+    join_schedules,
+    linear_schedule,
+)
 from torched_impala_tpu_torch.runtime.learner import LearnerConfig
 
 
@@ -53,6 +58,11 @@ class ExperimentConfig:
     fused_conv: bool = False
     # Torso compute dtype; params, heads and all loss math stay float32.
     compute_dtype: str = "float32"
+    # Rematerialize the torso in the learner's backward pass
+    # (torch.utils.checkpoint): one more torso forward a step in place of
+    # keeping its activations between the passes; the lever when device
+    # memory bounds the batch. The param names are unchanged.
+    remat_torso: bool = False
     loss_reduction: str = "sum"
     # V-trace and the loss sums in one kernel (ops/fused_loss.py).
     fused_epilogue: bool = False
@@ -72,6 +82,13 @@ class ExperimentConfig:
     total_env_frames: int = 1_000_000
     lr: float = 6e-4
     lr_anneal: bool = True  # linear anneal to 0 over total_learner_steps
+    # Large-batch operating point (arxiv 1803.02811's linear scaling):
+    # with lr_scale_ref_batch > 0 the base lr is lr * (B / lr_scale_ref_batch)
+    # (`scaled_base_lr`), and lr_warmup_steps learner steps ramp linearly
+    # 0 -> base before the anneal begins. The schedule is indexed by the
+    # optimizer's count, so a run restored mid-warmup resumes on the ramp.
+    lr_scale_ref_batch: int = 0
+    lr_warmup_steps: int = 0
     rmsprop_decay: float = 0.99
     rmsprop_eps: float = 1e-7
     max_grad_norm: float = 40.0
@@ -240,6 +257,7 @@ def make_agent(cfg: ExperimentConfig, seed: int = 0) -> Agent:
         lstm_size=cfg.lstm_size,
         generator=g,
         transformer=transformer,
+        remat_torso=cfg.remat_torso,
     )
     return Agent(net)
 
@@ -260,12 +278,34 @@ def make_learner_config(cfg: ExperimentConfig) -> LearnerConfig:
     )
 
 
-def make_lr_schedule(cfg: ExperimentConfig):
-    """Linear anneal from cfg.lr to 0 over the run's learner steps, indexed
-    by the optimizer's step count; a constant with lr_anneal=False."""
-    if not cfg.lr_anneal:
+def scaled_base_lr(cfg: ExperimentConfig) -> float:
+    """cfg.lr linearly scaled by the effective batch against
+    `lr_scale_ref_batch` (arxiv 1803.02811); 0 turns the scaling off. The
+    effective batch is `batch_size`: JAX's is batch_size *
+    steps_per_dispatch, and the port has no superbatches yet (ROADMAP.md
+    queue 1: The learner step's launches, then the rest of the learner)."""
+    if cfg.lr_scale_ref_batch <= 0:
         return cfg.lr
-    return linear_schedule(cfg.lr, 0.0, cfg.total_learner_steps)
+    return cfg.lr * (cfg.batch_size / cfg.lr_scale_ref_batch)
+
+
+def make_lr_schedule(cfg: ExperimentConfig):
+    """The learning-rate schedule, or a constant, indexed by the optimizer's
+    count: a linear warmup over `lr_warmup_steps` from 0 to the
+    (batch-scaled) base lr, then the linear anneal to 0 over the remaining
+    learner steps, or a constant tail with lr_anneal=False (JAX's
+    `make_lr_schedule`)."""
+    base_lr = scaled_base_lr(cfg)
+    warmup = max(0, cfg.lr_warmup_steps)
+    if cfg.lr_anneal:
+        tail = linear_schedule(base_lr, 0.0, max(1, cfg.total_learner_steps - warmup))
+    elif warmup:
+        tail = constant_schedule(base_lr)
+    else:
+        return base_lr
+    if warmup:
+        return join_schedules([linear_schedule(0.0, base_lr, warmup), tail], [warmup])
+    return tail
 
 
 def make_optimizer(cfg: ExperimentConfig) -> RMSProp:

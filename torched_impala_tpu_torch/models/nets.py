@@ -10,6 +10,13 @@ Two modes share the params:
   core once per step in a Python loop, the transformer core once over
   the whole unroll (step mode is its T = 1 unroll).
 
+With `remat_torso`, an unroll that builds a graph runs the torso with
+`remat=True` (models/torsos.py: each stage through a non-reentrant
+`torch.utils.checkpoint`): its activations are not kept for the
+backward, which runs the torso's forward again (the JAX `nn.remat`). The
+torso stays the same submodule, so the param names are unchanged; a step
+under no grad (the actors) runs the torso once, as without remat.
+
 The LSTM core runs in float32 (a bf16 torso's features are cast up) and
 zeroes the carry rows where `first` is set before each cell step: the
 `hk.ResetCore` semantics of the JAX `_core_step`. The transformer core
@@ -55,10 +62,13 @@ class ImpalaNet(nn.Module):
         lstm_size: int = 256,
         generator: Optional[torch.Generator] = None,
         transformer: Optional[dict] = None,
+        remat_torso: bool = False,
     ) -> None:
         """`transformer`: `TransformerCore` keyword arguments, used when
-        core="transformer"."""
+        core="transformer"; `remat_torso`: rematerialize the torso in the
+        learner's backward (module docstring)."""
         super().__init__()
+        self.remat_torso = remat_torso
         if core not in ("none", "lstm", "transformer"):
             raise ValueError(f"unknown core {core!r}")
         self.num_actions = num_actions
@@ -101,8 +111,9 @@ class ImpalaNet(nn.Module):
         `initial_state` or a previous call. Returns (NetOutput, state)."""
         if unroll:
             t, b = obs.shape[:2]
-            features = self.torso(obs.reshape(t * b, *obs.shape[2:]))
-            features = features.reshape(t, b, -1)
+            flat = obs.reshape(t * b, *obs.shape[2:])
+            remat = self.remat_torso and torch.is_grad_enabled()
+            features = self.torso(flat, remat=remat).reshape(t, b, -1)
         else:
             features = self.torso(obs)
         core_out = features.float()

@@ -26,14 +26,28 @@ Layout hazards pinned by tests/test_torch_port_models.py:
   with -inf (84 -> 42: (0, 1); 21 -> 11: (1, 1)); torch's `padding=1`
   pads both sides and shifts the windows by one at even sizes, with the
   same output sizes, so `max_pool_same` pads explicitly.
+
+Rematerialization: `forward(x, remat=True)` runs each stage (a dense
+layer, a conv with its relu or its pool, a residual block) through its
+own non-reentrant `torch.utils.checkpoint`: only the stages' inputs are
+kept for the backward, which runs each stage's forward again just
+before its own backward, one stage at a time. The params and the
+numbers are those of the plain forward. One checkpoint around the whole
+torso would bring every stage's activations back at once when the
+torso's backward begins; then the deep torso's widest stage, whose
+backward holds the learner step's peak device memory, keeps the
+max-pool's saved tensors alive under the residual blocks' backward as
+without remat (PERF.md §6).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from torched_impala_tpu_torch.ops.conv_block import fused_residual_block
@@ -74,6 +88,16 @@ def _dense(x, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
     return F.linear(x, layer.weight.to(dtype)) + layer.bias.to(dtype)
 
 
+def _stage(fn, x: torch.Tensor, remat: bool) -> torch.Tensor:
+    """`fn(x)`, with `remat` through a non-reentrant checkpoint (module
+    docstring). The torsos draw no random numbers: no RNG state to keep."""
+    if not remat:
+        return fn(x)
+    return torch.utils.checkpoint.checkpoint(
+        fn, x, use_reentrant=False, preserve_rng_state=False
+    )
+
+
 class MLPTorso(nn.Module):
     """ReLU MLP over vector observations `[N, F]` (CartPole config)."""
 
@@ -94,11 +118,14 @@ class MLPTorso(nn.Module):
             self.add_module(f"Dense_{i}", layer)
         self.feature_size = sizes[-1]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
         x = x.to(self.dtype)
         for i in range(self.num_layers):
-            x = F.relu(_dense(x, getattr(self, f"Dense_{i}"), self.dtype))
+            x = _stage(functools.partial(self._layer, i), x, remat)
         return x
+
+    def _layer(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(_dense(x, getattr(self, f"Dense_{i}"), self.dtype))
 
 
 class AtariShallowTorso(nn.Module):
@@ -122,20 +149,29 @@ class AtariShallowTorso(nn.Module):
         for layer in (self.Conv_0, self.Conv_1, self.Conv_2, self.Dense_0):
             init_dense_(layer, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
         """`x`: NHWC `[N, 84, 84, C]`, uint8 pixels or float."""
-        dt = self.dtype
+        h = _stage(self._first_conv, x, remat)
+        for i, stride in ((1, 2), (2, 1)):
+            h = _stage(functools.partial(self._conv, i, stride), h, remat)
+        return _stage(self._head, h, remat)
+
+    def _first_conv(self, x: torch.Tensor) -> torch.Tensor:
         w0 = self.Conv_0.weight
         if x.dtype == torch.uint8:
             w0 = w0 * (1.0 / 255.0)
         # NHWC -> NCHW as a view: the strides stay channels-last.
-        h = x.permute(0, 3, 1, 2).to(dt)
-        h = F.relu(_conv(h, w0, self.Conv_0.bias, 4, dt))
-        h = F.relu(_conv(h, self.Conv_1.weight, self.Conv_1.bias, 2, dt))
-        h = F.relu(_conv(h, self.Conv_2.weight, self.Conv_2.bias, 1, dt))
+        h = x.permute(0, 3, 1, 2).to(self.dtype)
+        return F.relu(_conv(h, w0, self.Conv_0.bias, 4, self.dtype))
+
+    def _conv(self, i: int, stride: int, h: torch.Tensor) -> torch.Tensor:
+        conv = getattr(self, f"Conv_{i}")
+        return F.relu(_conv(h, conv.weight, conv.bias, stride, self.dtype))
+
+    def _head(self, h: torch.Tensor) -> torch.Tensor:
         # Flatten in flax's (h, w, c) order.
         h = h.permute(0, 2, 3, 1).flatten(1)
-        return F.relu(_dense(h, self.Dense_0, dt))
+        return F.relu(_dense(h, self.Dense_0, self.dtype))
 
 
 def _same_pads(size: int, window: int, stride: int) -> tuple[int, int]:
@@ -241,19 +277,28 @@ class AtariDeepTorso(nn.Module):
         init_dense_(self.Dense_0, generator)
         self.feature_size = hidden_size
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
         """`x`: NHWC `[N, H, W, C]`, uint8 pixels or float."""
-        dt = self.dtype
-        uint8 = x.dtype == torch.uint8
-        # NHWC -> NCHW as a view: the strides stay channels-last.
-        h = x.permute(0, 3, 1, 2).to(dt)
+        h = x
         for i in range(self.num_sections):
-            conv = getattr(self, f"Conv_{i}")
-            w = conv.weight
-            if i == 0 and uint8:
-                w = w * (1.0 / 255.0)
-            h = max_pool_same(_conv(h, w, conv.bias, 1, dt, padding=1))
+            h = _stage(functools.partial(self._conv_pool, i), h, remat)
             for j in range(self.blocks_per_section):
-                h = getattr(self, f"ResidualBlock_{i * self.blocks_per_section + j}")(h)
+                block = getattr(self, f"ResidualBlock_{i * self.blocks_per_section + j}")
+                h = _stage(block, h, remat)
+        return _stage(self._head, h, remat)
+
+    def _conv_pool(self, i: int, h: torch.Tensor) -> torch.Tensor:
+        """Section i's conv and SAME max-pool; section 0 takes the NHWC
+        input (uint8 pixels or float)."""
+        conv = getattr(self, f"Conv_{i}")
+        w = conv.weight
+        if i == 0:
+            if h.dtype == torch.uint8:
+                w = w * (1.0 / 255.0)
+            # NHWC -> NCHW as a view: the strides stay channels-last.
+            h = h.permute(0, 3, 1, 2).to(self.dtype)
+        return max_pool_same(_conv(h, w, conv.bias, 1, self.dtype, padding=1))
+
+    def _head(self, h: torch.Tensor) -> torch.Tensor:
         h = F.relu(h).permute(0, 2, 3, 1).flatten(1)
-        return F.relu(_dense(h, self.Dense_0, dt))
+        return F.relu(_dense(h, self.Dense_0, self.dtype))

@@ -9,8 +9,8 @@ changed. Each tree's `measure()` runs in a process of its own, with that
 tree's root first on `sys.path`, in the order base, this, this, base, so
 that both see the same card and clocks; each builds its own kernels. A
 process measures through the wrappers and entry points, so the base tree
-must have the same ones (profiler device time, `ops/profiling.py`, mean of
-100 calls unless said):
+must have the same ones. Both are read through this tree's
+`ops/profiling.py` (profiler device time, mean of 100 calls unless said):
 
 - the LSTM cell (`lstm_cuda.lstm_cell_cuda`) at the Breakout learner's
   (B, F, H) = (32, 256, 256) and its actors' (8, 256, 256);
@@ -26,14 +26,16 @@ must have the same ones (profiler device time, `ops/profiling.py`, mean of
   `fused_epilogue`, then `torch.autograd.grad`) at each (T, B, A) of
   LOSS_SHAPES: device µs with every kernel summed, kernels a call, the
   fused-loss kernels' own device µs, and events ms;
-- the pong_transformer learner's `Learner.train_step` on a fixed batch
-  (the preset with `fused_epilogue=True` and the attention kernels), 10
-  steps: device-busy ms, kernels a step and the device µs of each kernel
-  by name (`profiling.device_us_by_kernel`).
+- `Learner.train_step` on a fixed batch for each of `train_presets()`:
+  Pong, Breakout unfused and with `fused_conv`, and pong_transformer
+  (with `fused_epilogue=True` and the attention kernels): events ms
+  (median of 20 steps), device-busy ms and kernels a step (10 steps),
+  and each kernel's launches and device µs a step by name
+  (`profiling.kernels_by_name`).
 
-Then, in this process, this tree's attention forward at each tile plan of
-FWD_PLANS and its backward at each plan of BWD_PLANS, twice each (the
-plans in order, then reversed), through the same wrappers with
+Before them, in this process, this tree's attention forward at each tile
+plan of FWD_PLANS and its backward at each plan of BWD_PLANS, twice each
+(the plans in order, then reversed), through the same wrappers with
 `fwd_tiles` / `bwd_tiles` answering the plan.
 
 Prints one JSON line with the card's name and power limit, each tree's
@@ -47,6 +49,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import runpy
 import statistics
 import subprocess
 import sys
@@ -75,6 +78,15 @@ BWD_PLANS = {
 }
 CALLS = 100
 STEP_CALLS = 10
+STEP_EVENTS = 20
+
+
+def _profiling():
+    """This tree's `ops/profiling.py`, loaded by path: every tree is read
+    through the same profiler code, whichever tree's modules it measures."""
+    import types
+
+    return types.SimpleNamespace(**runpy.run_path(str(Path(__file__).with_name("profiling.py"))))
 
 
 def _events_ms(fn, iters=50, warmup=5) -> float:
@@ -96,10 +108,8 @@ def _events_ms(fn, iters=50, warmup=5) -> float:
 def _device_us(fn, kernel: str | None) -> float:
     """Mean device µs a call of `fn` spends in kernels named `kernel` (in
     every kernel it launches when `kernel` is None)."""
-    from torched_impala_tpu_torch.ops import profiling
-
     fn()
-    us, _ = profiling.device_us(fn, calls=CALLS, name=kernel)
+    us, _ = _profiling().device_us(fn, calls=CALLS, name=kernel)
     if us is None:
         raise RuntimeError(f"the profiler saw no device time in {kernel}")
     return us
@@ -151,11 +161,64 @@ def attention_calls(device) -> dict:
     return calls
 
 
+def train_presets() -> dict:
+    """name -> config of each train step timed: Pong, Breakout with its
+    preset's unfused blocks and with `fused_conv`, and pong_transformer
+    with `fused_epilogue` and the attention kernels."""
+    from torched_impala_tpu_torch import configs
+
+    return {
+        "pong": configs.PONG,
+        "breakout_unfused": configs.BREAKOUT,
+        "breakout_fused": dataclasses.replace(configs.BREAKOUT, fused_conv=True),
+        "pong_transformer": dataclasses.replace(
+            configs.PONG_TRANSFORMER, fused_epilogue=True, transformer_dense_kernel="kernel"),
+    }
+
+
+def train_step_numbers(cfg, device) -> dict:
+    """`Learner.train_step` of `cfg` on a fixed full-size batch from a zero
+    start state, after 3 warm-up steps: events ms (median of STEP_EVENTS
+    steps), device-busy ms and kernels a step (STEP_CALLS steps), and each
+    kernel's launches and device µs a step by name."""
+    from torched_impala_tpu_torch import configs
+    from torched_impala_tpu_torch.runtime.learner import Learner
+
+    rng = np.random.default_rng(0)
+    agent = configs.make_agent(cfg, seed=0)
+    learner = Learner(agent=agent, optimizer=configs.make_optimizer(cfg),
+                      config=configs.make_learner_config(cfg), device=device)
+    T, B, A = cfg.unroll_length, cfg.batch_size, cfg.num_actions
+    batch = (
+        torch.from_numpy(rng.integers(0, 256, size=(T + 1, B, *cfg.obs_shape),
+                                      dtype=np.uint8)).to(device),
+        torch.zeros(T + 1, B, dtype=torch.bool, device=device),
+        torch.from_numpy(rng.integers(0, A, size=(T, B))).to(device),
+        torch.from_numpy(rng.normal(size=(T, B, A)).astype(np.float32)).to(device),
+        torch.from_numpy((rng.uniform(size=(T, B)) < 0.05).astype(np.float32)).to(device),
+        torch.ones(T, B, device=device),
+        agent.net.initial_state(B),
+    )
+    step = lambda: learner.train_step(batch)  # noqa: E731
+    for _ in range(3):
+        step()
+    profiling = _profiling()
+    busy_us, step_kernels = profiling.device_us(step, calls=STEP_CALLS)
+    return dict(
+        events_ms=_events_ms(step, iters=STEP_EVENTS, warmup=0),
+        device_busy_ms=busy_us / 1e3,
+        kernels=step_kernels,
+        params=len(learner.params),
+        kernels_by_name=profiling.kernels_by_name(step, calls=STEP_CALLS),
+    )
+
+
 def measure() -> dict:
     """This process's tree, timed on the card (see the module note)."""
-    from torched_impala_tpu_torch import configs, resolve_device
-    from torched_impala_tpu_torch.ops import losses, lstm_cuda, profiling, vtrace_cuda
-    from torched_impala_tpu_torch.runtime.learner import Learner
+    from torched_impala_tpu_torch import resolve_device
+    from torched_impala_tpu_torch.ops import losses, lstm_cuda, vtrace_cuda
+
+    profiling = _profiling()
 
     device = resolve_device()
     rng = np.random.default_rng(0)
@@ -202,29 +265,7 @@ def measure() -> dict:
             shape=[T, B, A], device_us=us, kernels=kernels, fused_loss_kernels_us=fused_us,
             fused_loss_kernels=fused_kernels, events_ms=_events_ms(loss_call))
 
-    pcfg = dataclasses.replace(configs.PONG_TRANSFORMER, fused_epilogue=True,
-                               transformer_dense_kernel="kernel")
-    agent = configs.make_agent(pcfg, seed=0)
-    learner = Learner(agent=agent, optimizer=configs.make_optimizer(pcfg),
-                      config=configs.make_learner_config(pcfg), device=device)
-    T, B, A = pcfg.unroll_length, pcfg.batch_size, pcfg.num_actions
-    batch = (
-        torch.from_numpy(rng.integers(0, 256, size=(T + 1, B, *pcfg.obs_shape),
-                                      dtype=np.uint8)).to(device),
-        torch.zeros(T + 1, B, dtype=torch.bool, device=device),
-        torch.from_numpy(rng.integers(0, A, size=(T, B))).to(device),
-        f32(T, B, A),
-        torch.from_numpy((rng.uniform(size=(T, B)) < 0.05).astype(np.float32)).to(device),
-        torch.ones(T, B, device=device),
-        agent.net.initial_state(B),
-    )
-    step = lambda: learner.train_step(batch)  # noqa: E731
-    for _ in range(3):
-        step()
-    busy_us, step_kernels = profiling.device_us(step, calls=STEP_CALLS)
-    by_kernel = profiling.device_us_by_kernel(step, calls=STEP_CALLS)
-    out["pong_transformer_train_step"] = dict(
-        device_busy_ms=busy_us / 1e3, kernels=step_kernels, device_us_by_kernel=by_kernel)
+    out["train_step"] = {name: train_step_numbers(cfg, device) for name, cfg in train_presets().items()}
     return out
 
 
@@ -287,8 +328,10 @@ def main(argv=None) -> int:
     from torched_impala_tpu_torch import resolve_device
 
     trees = {"base": Path(argv[0]).resolve(), "this": THIS_ROOT}
-    passes = [{"tree": label, **_run_tree(trees[label])} for label in ("base", "this", "this", "base")]
+    # The plans first, while this process is young (ops/profiling.py:
+    # an older process's trace loses more of a window's first launches).
     plans = plan_sweeps(resolve_device())
+    passes = [{"tree": label, **_run_tree(trees[label])} for label in ("base", "this", "this", "base")]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,

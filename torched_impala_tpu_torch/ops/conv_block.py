@@ -74,25 +74,37 @@ def block_backward(saved, dout):
       dy1 = conv2^T(dout)         da1 = dy1 [a1 > 0]
       db1 = sum da1               dk1 = kernel grad of (xr, da1)
       dx  = dout + conv1^T(da1) [x > 0]
+
+    Each f32 `[N, C, H, W]` intermediate is dropped, or overwritten in
+    place, as soon as no later line reads it: at the learner's widest
+    block three of them are alive at once, not eight (the block's
+    backward held the learner step's peak device memory). The values are
+    those of the formulas above, operation for operation.
     """
     x, k1, b1, k2, b2 = saved
-    dout_c = _nchw(dout.float())
-    xr = _nchw(torch.relu(x.float()))
     k1f, k2f = _oihw(k1.float()), _oihw(k2.float())
-    a1 = F.conv2d(xr, k1f, padding=1) + b1.float()[:, None, None]
-    y1 = torch.relu(a1)
     grad_weight = torch.nn.grad.conv2d_weight
+    xr = _nchw(torch.relu(x).float())  # relu is exact in x's dtype
+    dout_f = dout.float()
+    dout_c = _nchw(dout_f)
     db2 = dout_c.sum(dim=(0, 2, 3))
+    a1 = F.conv2d(xr, k1f, padding=1)
+    a1 += b1.float()[:, None, None]
+    on1 = a1 > 0
+    y1 = a1.relu_()
     dk2 = grad_weight(y1, k2f.shape, dout_c, padding=1)
-    dy1 = F.conv_transpose2d(dout_c, k2f, padding=1)
-    da1 = dy1 * (a1 > 0)
+    del a1, y1
+    da1 = F.conv_transpose2d(dout_c, k2f, padding=1).mul_(on1)
+    del on1
     db1 = da1.sum(dim=(0, 2, 3))
     dk1 = grad_weight(xr, k1f.shape, da1, padding=1)
-    dxr = F.conv_transpose2d(da1, k1f, padding=1)
-    dx = dout.float() + _nhwc(dxr) * (x > 0)
+    del xr
+    dx = _nhwc(F.conv_transpose2d(da1, k1f, padding=1))
+    del da1
+    dx = dx.mul_(x > 0).add_(dout_f)
     hwio = (2, 3, 1, 0)  # OIHW -> HWIO
     return (
-        dx.to(x.dtype),
+        dx.to(x.dtype, memory_format=torch.contiguous_format),
         dk1.permute(hwio).to(k1.dtype),
         db1.to(b1.dtype),
         dk2.permute(hwio).to(k2.dtype),

@@ -97,6 +97,12 @@ def entropy_loss(
     return _reduce(-entropy(logits), mask, reduction)
 
 
+# The log keys assemble_loss emits as sums over the batch under
+# reduction="sum" (every other log is a per-step mean); the learner sums
+# these over microbatches and averages the rest (JAX ops/losses.py:223).
+SUM_REDUCED_LOG_KEYS = frozenset({"pg_loss", "baseline_loss", "entropy_loss", "total_loss"})
+
+
 def assemble_loss(
     *,
     pg: torch.Tensor,

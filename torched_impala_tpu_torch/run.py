@@ -8,7 +8,8 @@ train mode with fake envs only).
         --total-steps 100 [--device cpu]
     python -m torched_impala_tpu_torch.run --config breakout --fake-envs \\
         --actor-mode thread --num-actors 4 --envs-per-actor 8 \\
-        --total-steps 100 [--fused-conv] [--device cpu]
+        --total-steps 100 [--fused-conv] [--grad-accum G] [--remat-torso] \\
+        [--device cpu]
     python -m torched_impala_tpu_torch.run --config pong_transformer \\
         --fake-envs --actor-mode thread --num-actors 4 --envs-per-actor 8 \\
         --total-steps 100 [--fused-epilogue] [--device cpu]
@@ -16,6 +17,10 @@ train mode with fake envs only).
     python -m torched_impala_tpu_torch.run --config pong --fake-envs \\
         --total-steps 1000 --checkpoint-dir DIR --async-checkpoint \\
         --checkpoint-interval 100 [--resume] [--chaos-plan PLAN.json]
+
+`--grad-accum G` sums the grads of G microbatches of B/G before each
+optimizer step and `--remat-torso` runs the torso's forward again in the
+backward: the two memory levers, each the same update as without it.
 
 The default device is the CUDA card; without one the run fails unless
 `--device cpu` is given.
@@ -96,6 +101,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--fused-epilogue", action="store_true",
                    help="V-trace and the loss sums in one kernel "
                    "(ops/fused_loss.py)")
+    p.add_argument("--grad-accum", type=int, default=None,
+                   help="accumulate gradients over G microbatches before "
+                   "one optimizer update (the full batch's update, about "
+                   "G-fold fewer activations alive)")
+    p.add_argument("--remat-torso", action="store_true",
+                   help="rematerialize the torso in the backward pass "
+                   "(one more torso forward a step in place of keeping "
+                   "its activations)")
     p.add_argument("--transformer-dtype", choices=("float32", "bfloat16"),
                    default=None,
                    help="the transformer core's matmul compute dtype")
@@ -143,6 +156,7 @@ def build_config(args: argparse.Namespace) -> configs.ExperimentConfig:
         "fused_conv": args.fused_conv or None,
         "fused_epilogue": args.fused_epilogue or None,
         "transformer_dtype": args.transformer_dtype,
+        "remat_torso": args.remat_torso or None,
     }
     cfg = configs.PRESETS[args.config]
     return dataclasses.replace(
@@ -189,6 +203,10 @@ def main(argv=None) -> int:
     if args.chaos:
         env_factory = CrashingFactory(env_factory, crash_after=args.chaos)
     chaos_plan = ChaosPlan.from_json(args.chaos_plan) if args.chaos_plan else None
+    learner_config = configs.make_learner_config(cfg)
+    if args.grad_accum is not None:
+        # No truthiness filter: 0 reaches the Learner's own >= 1 check.
+        learner_config = dataclasses.replace(learner_config, grad_accum=args.grad_accum)
     t0 = time.monotonic()
     try:
         result = train(
@@ -199,7 +217,7 @@ def main(argv=None) -> int:
             actor_mode=cfg.actor_mode,
             pool_mode=cfg.pool_mode,
             pool_ready_fraction=cfg.pool_ready_fraction,
-            learner_config=configs.make_learner_config(cfg),
+            learner_config=learner_config,
             optimizer=configs.make_optimizer(cfg),
             total_steps=args.total_steps,
             seed=args.seed,

@@ -17,10 +17,22 @@ batch and one SGD step:
     backward -> global-norm clip
     scale = min(1, max_grad_norm / (||g|| + 1e-8)) -> RMSProp
 
-then publishes the params for the actors. The clip
-formula is the JAX learner's exactly; `torch.nn.utils.clip_grad_norm_`
-adds 1e-6 instead and is not used. `max_grad_norm=None` skips the clip
-and takes the unclipped step, as the JAX learner does.
+then publishes the params for the actors every `publish_interval`
+steps. The clip formula is the JAX learner's exactly;
+`torch.nn.utils.clip_grad_norm_` adds 1e-6 instead and is not used.
+`max_grad_norm=None` skips the clip and takes the unclipped step, as the
+JAX learner does. The norms, the clip and the optimizer are multi-tensor
+ops over the params' list (`torch._foreach_*`), a few launches a step
+whatever the number of tensors.
+
+With `grad_accum=G > 1` the batch is split into G microbatches of B/G
+columns, in JAX's order (microbatch g is columns g*B/G ... (g+1)*B/G - 1
+of every `[T(+1), B, ...]` array and rows of the `[B, ...]` start
+state). Each runs unroll, loss and `torch.autograd.grad` in turn, its
+graph freed before the next is built, and its grads are summed into one
+f32 accumulator list (divided by G for reduction="mean"); then one clip
+and one optimizer step. Only one microbatch's activations are alive at a
+time: the memory lever of JAX's microbatch scan.
 """
 
 from __future__ import annotations
@@ -38,11 +50,20 @@ import torch
 
 from torched_impala_tpu_torch.models.agent import Agent
 from torched_impala_tpu_torch.ops import precision
-from torched_impala_tpu_torch.ops.losses import ImpalaLossConfig, impala_loss
+from torched_impala_tpu_torch.ops.losses import (
+    SUM_REDUCED_LOG_KEYS,
+    ImpalaLossConfig,
+    impala_loss,
+)
 from torched_impala_tpu_torch.optim import RMSProp
 from torched_impala_tpu_torch.runtime.param_store import ParamStore
 from torched_impala_tpu_torch.runtime.traj_ring import TrajectoryRing
-from torched_impala_tpu_torch.runtime.types import QueueClosed, Trajectory, map_state
+from torched_impala_tpu_torch.runtime.types import (
+    QueueClosed,
+    Trajectory,
+    crossed_interval,
+    map_state,
+)
 from torched_impala_tpu_torch.utils.checkpoint import validate_restored_shapes
 
 
@@ -53,9 +74,23 @@ class LearnerConfig:
     loss: ImpalaLossConfig = ImpalaLossConfig()
     # IMPALA paper's global-norm clip; None takes unclipped steps.
     max_grad_norm: Optional[float] = 40.0
+    # Publish the params to the actors every N steps (1 = every step);
+    # `set_state` republishes at once whatever N.
+    publish_interval: int = 1
     # Call the logger every N steps; converting the logs to floats waits
     # for the device, so keep this > 1 for throughput runs.
     log_interval: int = 1
+    # Host trajectory queue capacity in unrolls (bounds the actors' lead);
+    # None = 2 * batch_size.
+    queue_capacity: Optional[int] = None
+    # Device batch queue depth; 2 = double buffering. The trajectory
+    # ring's slots are this many in flight, one filling and one spare.
+    device_queue_depth: int = 2
+    # Sum the grads of G microbatches of batch_size / G columns before one
+    # optimizer step (module docstring): the activations of one microbatch
+    # are alive at a time, and the update is the full batch's. batch_size
+    # must divide by G.
+    grad_accum: int = 1
     # The trajectory ring (runtime/traj_ring.py): vectorized actors write
     # unrolls straight into [T+1, B, ...] batch slots (pinned host memory
     # on the card) and the batcher copies a completed slot to the device
@@ -108,8 +143,26 @@ def alloc_stack_buffers(trajs: list[Trajectory]) -> Trajectory:
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (optax.global_norm)."""
-    return torch.sqrt(sum(torch.sum(torch.square(t)) for t in tensors))
+    """sqrt of the sum of squares of every element (optax.global_norm), as
+    multi-tensor ops: each tensor's 2-norm in one `_foreach_norm`, then the
+    2-norm of those norms."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
+
+
+def split_batch(arrays: tuple, grad_accum: int) -> list[tuple]:
+    """`_to_device`'s tuple as `grad_accum` microbatches in JAX's order:
+    microbatch g holds columns g*Bm ... (g+1)*Bm - 1 of every
+    `[T(+1), B, ...]` array and those rows of every `[B, ...]` leaf of the
+    start state (Bm = B / grad_accum), each contiguous."""
+    *tb, state = arrays
+    bm = tb[0].shape[1] // grad_accum
+    return [
+        (
+            *(x[:, g * bm : (g + 1) * bm].contiguous() for x in tb),
+            map_state(lambda x: x[g * bm : (g + 1) * bm].contiguous(), state),
+        )
+        for g in range(grad_accum)
+    ]
 
 
 class Learner:
@@ -132,6 +185,13 @@ class Learner:
         self._config = config
         self._device = torch.device(device)
         self._logger = logger
+        G = config.grad_accum
+        if G < 1:
+            raise ValueError(f"grad_accum must be >= 1, got {G}")
+        if config.batch_size % G:
+            raise ValueError(
+                f"batch_size {config.batch_size} not divisible by grad_accum {G}"
+            )
         agent.net.to(self._device)
         self._params = dict(agent.net.named_parameters())
         optimizer.init(self._params)
@@ -145,10 +205,12 @@ class Learner:
         self.num_frames = 0
         self.num_steps = 0
         self.last_batch_device: Optional[torch.device] = None
-        # Actors may lead by two batches; two device batches in flight
-        # (double buffering).
-        self._traj_q: queue.Queue = queue.Queue(maxsize=2 * config.batch_size)
-        self._batch_q: queue.Queue = queue.Queue(maxsize=2)
+        # By default actors may lead by two batches, and two device batches
+        # are in flight (double buffering).
+        self._traj_q: queue.Queue = queue.Queue(
+            maxsize=config.queue_capacity or 2 * config.batch_size
+        )
+        self._batch_q: queue.Queue = queue.Queue(maxsize=config.device_queue_depth)
         self._stop = threading.Event()
         self._batcher_thread: Optional[threading.Thread] = None
         # A batcher failure is re-raised from step_once (single writer).
@@ -157,7 +219,7 @@ class Learner:
         self._last_log_t: Optional[float] = None
         self._last_log_frames = 0
         # The ring: the device queue's depth in slots in flight, one
-        # filling and one spare.
+        # filling and one spare (JAX's count).
         self.traj_ring: Optional[TrajectoryRing] = None
         if config.traj_ring:
             if example_obs is None:
@@ -321,9 +383,10 @@ class Learner:
     def _publish(self) -> None:
         self.param_store.publish(self.num_frames, self._params)
 
-    def train_step(self, arrays: tuple) -> dict[str, torch.Tensor]:
-        """One SGD step on a device batch (`_to_device`'s tuple: the six
-        trajectory arrays and the start state); returns device-scalar logs."""
+    def _grads(self, arrays: tuple) -> tuple[list[torch.Tensor], dict]:
+        """Unroll, loss and `torch.autograd.grad` on one (micro)batch: the
+        grads in the params' order and the loss's device-scalar logs. The
+        graph is freed on return."""
         obs, first, actions, behaviour_logits, rewards, cont, state = arrays
         cfg = self._config
         net_out, _ = self._agent.unroll(obs, first, state)
@@ -338,14 +401,40 @@ class Learner:
             discounts=cfg.loss.discount * cont,
             config=cfg.loss,
         )
-        names = list(self._params)
-        grads = torch.autograd.grad(out.total, [self._params[k] for k in names])
+        grads = torch.autograd.grad(out.total, list(self._params.values()))
+        return list(grads), {k: v.detach() for k, v in out.logs.items()}
+
+    def train_step(self, arrays: tuple) -> dict[str, torch.Tensor]:
+        """One SGD step on a device batch (`_to_device`'s tuple: the six
+        trajectory arrays and the start state), over `grad_accum`
+        microbatches; returns device-scalar logs. With G > 1 the logs of
+        SUM_REDUCED_LOG_KEYS are summed over the microbatches under
+        reduction="sum" and every other log is their mean, as JAX's scan
+        combines them."""
+        cfg = self._config
+        G = cfg.grad_accum
+        if G == 1:
+            grads, logs = self._grads(arrays)
+        else:
+            grads, micro_logs = None, []
+            for micro in split_batch(arrays, G):
+                micro_grads, micro_log = self._grads(micro)
+                grads = micro_grads if grads is None else torch._foreach_add(grads, micro_grads)
+                micro_logs.append(micro_log)
+            if cfg.loss.reduction == "mean":
+                grads = torch._foreach_div(grads, float(G))
+            summed = SUM_REDUCED_LOG_KEYS if cfg.loss.reduction == "sum" else ()
+            logs = {
+                k: torch.stack([m[k] for m in micro_logs]).sum(0)
+                if k in summed
+                else torch.stack([m[k] for m in micro_logs]).mean(0)
+                for k in micro_logs[0]
+            }
         grad_norm = global_norm(grads)
         if cfg.max_grad_norm is not None:
             scale = torch.clamp(cfg.max_grad_norm / (grad_norm + 1e-8), max=1.0)
-            grads = [g * scale for g in grads]
-        self._optimizer.step(self._params, dict(zip(names, grads)))
-        logs = {k: v.detach() for k, v in out.logs.items()}
+            grads = torch._foreach_mul(grads, scale)
+        self._optimizer.step(self._params, dict(zip(self._params, grads)))
         logs["grad_norm_unclipped"] = grad_norm.detach()
         with torch.no_grad():
             logs["weight_norm"] = global_norm(self._params.values())
@@ -377,7 +466,8 @@ class Learner:
         logs["num_frames"] = self.num_frames
         logs["num_steps"] = self.num_steps
         logs["param_lag_frames"] = self.num_frames - batch_version
-        self._publish()
+        if crossed_interval(self.num_steps, 1, cfg.publish_interval):
+            self._publish()
         if self._logger is not None and self.num_steps % cfg.log_interval == 0:
             now = time.monotonic()
             if self._last_log_t is not None:

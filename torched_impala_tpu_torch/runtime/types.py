@@ -56,3 +56,10 @@ def map_state(fn: Callable, *states) -> Any:
     if hasattr(states[0], "_fields"):
         return type(states[0])(*leaves)
     return tuple(leaves)
+
+
+def crossed_interval(num_steps: int, delta: int, interval: int) -> bool:
+    """True iff advancing the step counter from `num_steps - delta` to
+    `num_steps` crossed a multiple of `interval` (fires once a boundary
+    whatever the step size; JAX runtime/types.py)."""
+    return (num_steps // interval) > ((num_steps - delta) // interval)
