@@ -190,9 +190,10 @@ PEAK_F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 PEAK_TF32_SPLIT_OPS_PER_S = 495e12 / 3
 PEAK_BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 # V-trace (T, B): the Pong shape first (timed), then longer unrolls, wider
-# batches, one step over a 32-step chunk with a ragged second tile, and
-# ragged ones.
-KERNEL_SHAPES = [(20, 32), (100, 32), (20, 256), (1, 1), (7, 130), (33, 33), (1000, 32)]
+# batches, one step over a 32-step chunk with a ragged second tile, ragged
+# ones, and breakout_accum's microbatch (B = 32 / 2).
+KERNEL_SHAPES = [(20, 32), (100, 32), (20, 256), (1, 1), (7, 130), (33, 33), (1000, 32),
+                 (20, 16)]
 # Unroll lengths of the V-trace kernel's device-time sweep at B = 32: the
 # slope is what each step of T costs.
 VTRACE_SWEEP_T = (20, 100, 1000)
@@ -209,9 +210,10 @@ RING_PROBE_BATCHES = 4
 BREAKOUT_STEPS = 12
 PROFILED_STEPS = 8
 # B, F, H: the learner's and the actors' shapes first (both timed), then
-# ragged ones: one unit, K tiled past one stage, two row tiles.
+# ragged ones: one unit, K tiled past one stage, two row tiles; last,
+# breakout_accum's microbatch (B = 32 / 2).
 LSTM_SHAPES = [(32, 256, 256), (8, 256, 256), (1, 7, 7), (33, 100, 130), (1, 1, 1),
-               (2, 3, 300), (64, 512, 256)]
+               (2, 3, 300), (64, 512, 256), (16, 256, 256)]
 LSTM_MIN_BLOCKS = 128  # the grid at H = 256, whatever B
 LSTM_ATOL = 5e-5
 # (N, H, W, C): the learner's three block shapes (21 x 32 images), then
@@ -219,6 +221,9 @@ LSTM_ATOL = 5e-5
 # line's sums.
 BLOCK_LEARNER_SHAPES = [(672, 42, 42, 16), (672, 21, 21, 32), (672, 11, 11, 32)]
 BLOCK_SHAPES = BLOCK_LEARNER_SHAPES + [(8, 42, 42, 16), (8, 21, 21, 32), (8, 11, 11, 32)]
+# breakout_accum's three block shapes (a microbatch of 21 x 16 images),
+# held to the plain block but not timed.
+BLOCK_ACCUM_SHAPES = [(336, 42, 42, 16), (336, 21, 21, 32), (336, 11, 11, 32)]
 # Channel counts the bf16 kernel zero-pads (to 32, 16 and 80; at 80 each
 # conv's kernel is staged before that conv).
 BLOCK_BF16_PADDED_SHAPES = [(3, 13, 7, 24), (2, 13, 21, 1), (2, 9, 9, 72)]
@@ -613,7 +618,7 @@ def phase_resblock(device):
         return x_nchw + F.conv2d(F.relu(out), w2, b2, padding=1)
 
     per_shape, equal_share, plans = {}, {}, {}
-    for shape in BLOCK_SHAPES + BLOCK_BF16_PADDED_SHAPES:
+    for shape in BLOCK_SHAPES + BLOCK_ACCUM_SHAPES + BLOCK_BF16_PADDED_SHAPES:
         args = inputs(*shape, torch.bfloat16, seed=shape[1])
         out = conv_block_cuda.resblock_cuda(*args)
         ref = conv_block.block_reference(*args)

@@ -96,7 +96,7 @@ def _inputs(T, B, seed, device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("clips", sorted(THRESHOLDS))
 @pytest.mark.parametrize(
-    "T,B", [(1, 1), (5, 7), (20, 32), (20, 130), (100, 32), (20, 256)]
+    "T,B", [(1, 1), (5, 7), (20, 16), (20, 32), (20, 130), (100, 32), (20, 256)]
 )
 def test_vtrace_kernel_matches_reference(cuda, T, B, clips):
     from torched_impala_tpu_torch.ops import vtrace_cuda
@@ -175,11 +175,16 @@ def test_vtrace_wrapper_refuses_bad_inputs(cuda):
         vtrace_cuda.vtrace_cuda(**{**x, "bootstrap_value": x["values"][0, :3]})
 
 
-LSTM_SHAPES = [(32, 256, 256), (8, 256, 256), (1, 7, 7), (33, 100, 130)]
+# The learner's, the actors' and a Breakout microbatch's (B = 32 / 2), then
+# ragged ones.
+LSTM_SHAPES = [(32, 256, 256), (8, 256, 256), (16, 256, 256), (1, 7, 7), (33, 100, 130)]
 # One unit and one row; F far below H, H ragged past one 256-row stage;
 # two row tiles with K = 768 over four stages.
 LSTM_EDGE_SHAPES = [(1, 1, 1), (2, 3, 300), (64, 512, 256)]
-BLOCK_SHAPES = [(672, 42, 42, 16), (672, 21, 21, 32), (672, 11, 11, 32), (8, 42, 42, 16)]
+# The learner's three Breakout block shapes, a microbatch's (G = 2), an
+# actor's.
+BLOCK_SHAPES = [(672, 42, 42, 16), (672, 21, 21, 32), (672, 11, 11, 32),
+                (336, 42, 42, 16), (336, 21, 21, 32), (336, 11, 11, 32), (8, 42, 42, 16)]
 BF16_ULP = 2.0**-7
 
 

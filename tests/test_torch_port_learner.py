@@ -429,13 +429,15 @@ def test_grad_accum_matches_jax(kind, reduction):
 
 @pytest.mark.parametrize("reduction", ["sum", "mean"])
 @pytest.mark.parametrize("kind", ["mlp", "lstm"])
-def test_grad_accum_takes_the_full_batch_step(kind, reduction):
-    """The port at G = 2 against the port at G = 1 on the same batches and
-    params: the full batch's update. The grads are f32 sums taken in
-    another order (two microbatch sums added), so params agree at rtol
-    1e-5, atol 1e-7 and the logs at rtol 1e-5, atol 1e-6."""
+@pytest.mark.parametrize("G", [2, 4])
+def test_grad_accum_takes_the_full_batch_step(G, kind, reduction):
+    """The port at G = 2 and 4 (the accumulator added into in place from
+    the third microbatch) against the port at G = 1 on the same batches
+    and params: the full batch's update. The grads are f32 sums taken in
+    another order (G microbatch sums added), so params agree at rtol 1e-5,
+    atol 1e-7 and the logs at rtol 1e-5, atol 1e-6."""
     T, B = 5, 4
-    whole, accum = _port_only(kind, T, B), _port_only(kind, T, B, grad_accum=2)
+    whole, accum = _port_only(kind, T, B), _port_only(kind, T, B, grad_accum=G)
     for r in range(STEPS):
         batch = _device_batch(whole, kind, T, B, r)
         want, got = whole.train_step(batch), accum.train_step(batch)

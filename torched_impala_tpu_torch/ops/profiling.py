@@ -6,60 +6,48 @@ Every function needs a CUDA card; nothing here runs at import.
 
 from __future__ import annotations
 
-import contextlib
 import json
 import os
 import tempfile
-import time
 import warnings
 
 import torch
 
 # Warm-up launches at the start of each profiled window. The trace of a
 # window lacks the kernels of its first launches, the more of them the
-# older the process (PERF.md §6: none in a fresh process, one or
-# two after the ~20 s of a cold build, six at 75 s). So each window first
-# launches a burst of tiny kernels (WARMUP_KERNEL), which the counts leave
-# out. A window whose trace kept none of them may have lost the measured
-# launches too: it is taken again with the next, longer burst of
-# WARMUP_LAUNCHES, and past the last it raises.
-WARMUP_LAUNCHES = (1000, 8000, 64000)
+# older the process (PERF.md §6: none in a fresh process, one or two after
+# the ~20 s of a cold build, six at 75 s, all of 1000 in a process whose
+# first window came ≈ 15 min in). So each window first launches a burst
+# of WARMUP_LAUNCHES tiny kernels (WARMUP_KERNEL), which the counts leave
+# out; a window whose trace kept none of them may have lost the measured
+# launches too, and raises.
+WARMUP_LAUNCHES = 1000
 WARMUP_KERNEL = "spin_kernel"  # torch.cuda._sleep's
 
 
-@contextlib.contextmanager
-def _window(warmup: int):
-    """A profiler window over the CUDA and CPU activity that starts with
-    `warmup` launches of WARMUP_KERNEL; its body runs after them, and the
-    device is synchronized before the window closes."""
+def _windows(fn):
+    """A profiler window over the CUDA and CPU activity of `fn()`, opened by
+    WARMUP_LAUNCHES launches of WARMUP_KERNEL and closed after the device
+    is synchronized; raises if its trace kept none of the warm-up kernels."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(warmup):
-            torch.cuda._sleep(1)
-        yield prof
-        torch.cuda.synchronize()
-
-
-def _windows(fn):
-    """The first profiler window over `fn()` (with a warm-up burst of
-    WARMUP_LAUNCHES) whose trace kept some of its warm-up kernels."""
-    from torch.autograd import DeviceType
-
-    for warmup in WARMUP_LAUNCHES:
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore", UserWarning)
-            with _window(warmup) as prof:
-                fn()
-        if any(
-            avg.device_type == DeviceType.CUDA and WARMUP_KERNEL in avg.key
-            for avg in prof.key_averages()
-        ):
-            return prof
-    raise RuntimeError(
-        f"the profiler's trace lost all {WARMUP_LAUNCHES[-1]} warm-up launches: "
-        "the measured launches may be short too"
-    )
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(WARMUP_LAUNCHES):
+                torch.cuda._sleep(1)
+            fn()
+            torch.cuda.synchronize()
+    if not any(
+        avg.device_type == DeviceType.CUDA and WARMUP_KERNEL in avg.key
+        for avg in prof.key_averages()
+    ):
+        raise RuntimeError(
+            f"the profiler's trace lost all {WARMUP_LAUNCHES} warm-up launches: "
+            "the measured launches may be short too"
+        )
+    return prof
 
 
 def _cuda_rows(fn, calls):
@@ -157,184 +145,3 @@ def peak_live_blocks(fn, top=8):
         "live": sorted(by_line.items(), key=lambda kv: -kv[1])[:top],
     }
 
-
-# ---- what the profiler's trace loses, and when (PERF.md §6) -------------
-#
-#     python -m torched_impala_tpu_torch.ops.profiling            # probe()
-#     python -m torched_impala_tpu_torch.ops.profiling diagnose   # _diagnose()
-
-
-def _raw_window_rows(fn, calls):
-    """CUDA rows of one profiler window with no warm-up burst."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", UserWarning)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-    return prof, [a for a in prof.key_averages() if a.device_type == DeviceType.CUDA]
-
-
-def _launches(rows, name, calls):
-    return sum(a.count for a in rows if name in a.key) / calls
-
-
-def _probe_child(between: str, sleep_s: float) -> dict:
-    """A V-trace window, then `between` ("build": nvcc builds the three
-    attention sources; "sleep": `sleep_s` seconds; "none"), then the
-    attention backward at (B, T, H, dh, W) = (2, 300, 4, 64, 128), two
-    kernels a call: five windows of 3 calls with no warm-up, then five
-    through `device_us` (the warm-up launches first)."""
-    import numpy as np
-
-    from torched_impala_tpu_torch import resolve_device
-    from torched_impala_tpu_torch.ops import _build, attention_cuda, vtrace_cuda
-
-    device = resolve_device()
-    rng = np.random.default_rng(0)
-
-    def f32(*shape):
-        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(device)
-
-    t0 = time.monotonic()
-    x = dict(log_rhos=f32(20, 32), discounts=torch.full((20, 32), 0.99, device=device),
-             rewards=f32(20, 32), values=f32(20, 32), bootstrap_value=f32(32))
-    vtrace_cuda.vtrace_cuda(**x)
-    out = {"between": between,
-           "vtrace": _launches(_raw_window_rows(lambda: vtrace_cuda.vtrace_cuda(**x), 3)[1],
-                               "vtrace", 3)}
-    t1 = time.monotonic()
-    if between == "build":
-        _build.build_all(["attention_fwd", "attention_bwd", "attention_wide"])
-    elif between == "sleep":
-        time.sleep(sleep_s)
-    out["between_s"] = time.monotonic() - t1
-    B, T, H, dh, W = 2, 300, 4, 64, 128
-    q, g = f32(B, T, H, dh), f32(B, T, H, dh)
-    k, v = f32(B, W + T, H, dh), f32(B, W + T, H, dh)
-    seg_q = torch.ones(B, T, dtype=torch.int32, device=device)
-    seg_ctx = torch.ones(B, W + T, dtype=torch.int32, device=device)
-    o, lse = attention_cuda.attention_forward_cuda(q, k, v, seg_q, seg_ctx, W)
-    args = (q, k, v, g, o, lse, seg_q, seg_ctx, W)
-    for _ in range(2):
-        attention_cuda.attention_backward_cuda(*args)
-    torch.cuda.synchronize()
-
-    def bwd():
-        attention_cuda.attention_backward_cuda(*args)
-
-    out["plain"] = [_launches(_raw_window_rows(bwd, 3)[1], "attention_bwd", 3)
-                    for _ in range(5)]
-    out["warmed"] = [device_us(bwd, calls=3, name="attention_bwd")[1] for _ in range(5)]
-    out["process_s"] = time.monotonic() - t0
-    return out
-
-
-def _trace_record(prof) -> dict:
-    """What one window recorded: CUDA rows by kernel (key_averages), the
-    trace's kernel events by kernel, its launch calls, and the places (in
-    launch order) of the launches whose kernel the trace lacks."""
-    from torch.autograd import DeviceType
-
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    kernels = [e for e in events if e.get("cat") == "kernel"]
-    launches = sorted((e["ts"], e["args"]["correlation"]) for e in events
-                      if e.get("cat") == "cuda_runtime" and "Launch" in e.get("name", ""))
-    seen = {e["args"].get("correlation") for e in kernels}
-    rows, trace = {}, {}
-    for a in prof.key_averages():
-        if a.device_type == DeviceType.CUDA:
-            rows[a.key[:40]] = rows.get(a.key[:40], 0) + a.count
-    for e in kernels:
-        trace[e["name"][:40]] = trace.get(e["name"][:40], 0) + 1
-    return {"rows": rows, "trace_kernels": trace, "launch_calls": len(launches),
-            "launches_without_kernel_at": [i for i, (_, c) in enumerate(launches) if c not in seen]}
-
-
-def _diagnose(age_s: float = 75.0, burst: int = 400) -> dict:
-    """Which kernel records a window loses in an aged process, and whether
-    a burst of `burst` small fills launched inside the window before
-    (`lead`) or after (`trail`) the work, synchronized, keeps them. The
-    work is 20 adds then 20 multiplies; one window with no warm-up at a
-    process age of 0, then after `age_s` seconds plain, lead, trail and
-    plain again. Each window says which launches, by place in launch
-    order, have no kernel in the trace."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from torched_impala_tpu_torch import resolve_device
-
-    device = resolve_device()
-    x, y = torch.zeros(1 << 16, device=device), torch.zeros(16, device=device)
-
-    def work():
-        for _ in range(20):
-            x.add_(1.0)
-        for _ in range(20):
-            x.mul_(1.0)
-
-    def fills():
-        for _ in range(burst):
-            y.fill_(0.0)
-        torch.cuda.synchronize()
-
-    def window(kind):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            if kind == "lead":
-                fills()
-            work()
-            torch.cuda.synchronize()
-            if kind == "trail":
-                fills()
-        return dict(_trace_record(prof), kind=kind)
-
-    work()
-    torch.cuda.synchronize()
-    out = {"young": window("plain")}
-    time.sleep(age_s)
-    out["aged"] = [window(kind) for kind in ("plain", "lead", "trail", "plain")]
-    return out
-
-
-def probe() -> list:
-    """`_probe_child` in four fresh processes, in turn: a cold build (the
-    checkout's kernel directory removed first), a warm one with nothing
-    between, a warm one that sleeps as long as the cold build took, and a
-    cold build again."""
-    import shutil
-    import subprocess
-    import sys
-
-    from torched_impala_tpu_torch.ops import _build
-
-    def child(call):
-        code = ("import json; from torched_impala_tpu_torch.ops import profiling; "
-                f"print('PROBE ' + json.dumps(profiling.{call}))")
-        proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True)
-        lines = [x for x in proc.stdout.splitlines() if x.startswith("PROBE ")]
-        if proc.returncode != 0 or not lines:
-            raise RuntimeError(f"probe child {call} failed:\n{proc.stderr[-4000:]}")
-        return json.loads(lines[-1][len("PROBE "):])
-
-    shutil.rmtree(_build.build_dir(), ignore_errors=True)
-    runs = [child("_probe_child('build', 0)")]
-    runs.append(child("_probe_child('none', 0)"))
-    runs.append(child(f"_probe_child('sleep', {runs[0]['between_s']})"))
-    shutil.rmtree(_build.build_dir(), ignore_errors=True)
-    runs.append(child("_probe_child('build', 0)"))
-    return runs
-
-
-if __name__ == "__main__":
-    import sys
-
-    if sys.argv[1:] == ["diagnose"]:
-        print(json.dumps({"torch": torch.__version__, "diagnose": _diagnose()}))
-    else:
-        print(json.dumps({"torch": torch.__version__, "probe": probe()}))

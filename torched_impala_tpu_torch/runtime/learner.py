@@ -414,15 +414,26 @@ class Learner:
         cfg = self._config
         G = cfg.grad_accum
         if G == 1:
+            # One microbatch's logs as they are: none of the stack-and-reduce
+            # launches that combine G of them.
             grads, logs = self._grads(arrays)
         else:
-            grads, micro_logs = None, []
-            for micro in split_batch(arrays, G):
+            micro_logs = []
+            for g, micro in enumerate(split_batch(arrays, G)):
                 micro_grads, micro_log = self._grads(micro)
-                grads = micro_grads if grads is None else torch._foreach_add(grads, micro_grads)
                 micro_logs.append(micro_log)
+                if g == 0:
+                    grads = micro_grads
+                elif g == 1:
+                    # A new list: autograd may hand two params one tensor, or
+                    # a broadcast view, so only this sum's tensors are the
+                    # accumulator that later microbatches add into in place.
+                    grads = torch._foreach_add(grads, micro_grads)
+                else:
+                    torch._foreach_add_(grads, micro_grads)
+                del micro_grads  # not held through the next microbatch's backward
             if cfg.loss.reduction == "mean":
-                grads = torch._foreach_div(grads, float(G))
+                torch._foreach_div_(grads, float(G))
             summed = SUM_REDUCED_LOG_KEYS if cfg.loss.reduction == "sum" else ()
             logs = {
                 k: torch.stack([m[k] for m in micro_logs]).sum(0)
