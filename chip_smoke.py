@@ -103,7 +103,22 @@ non-zero (no phase's failure is caught):
    - "pong_thread": 4 thread actors x 8 envs, 12 learner steps, with the
      learner's train step alone on a fixed batch, one actor alone and
      one fake env step.
-10. resume: the PONG preset as configured (32 worker processes, queue
+10. pong_superbatch: the PONG preset as `run.py --superbatch-k 4`
+   configures it (the preset's 32 worker processes, the trajectory ring
+   with superbatch slots, `donate_batch`, 4 steps a dispatch) through
+   `loop.train` for 20 dispatches (80 learner steps), as pong_ring, the
+   workers' checks included: V-trace launched exactly 4 times a dispatch
+   and held to its plain version on the run's own first learner input
+   (1e-5); the ring's slots pinned, `device_queue_depth + 4` of them,
+   each `[4, 21, 32, 84, 84, 4]`; every slot release finding the event
+   recorded after the step that consumed it completed; on a fixed
+   superbatch one dispatch equal bit for bit to 4 `train_step`s on its
+   slices, from the same params, with cuDNN's deterministic algorithms;
+   the dispatch alone (events ms, device-busy ms, kernels), one step
+   alone, the dispatch's peak device memory, the pinned slots' bytes and
+   allocation seconds, and the loop's env frames/s and final param lag
+   beside pong_ring's from the same call.
+11. resume: the PONG preset as configured (32 worker processes, queue
    feed) through `loop.train` with checkpoints. Run 1: an
    `AsyncCheckpointer` (interval 4, keep 3) and a fault plan (one env
    worker SIGKILLed, actor 0 raised at an unroll start, the third save
@@ -124,11 +139,11 @@ non-zero (no phase's failure is caught):
    step windows with and without one (host clock), the clone's ms on
    the learner thread, the writer's seconds and bytes a save, the
    restore's seconds. Its temporary directory is removed.
-11. breakout: `loop.train` with the BREAKOUT preset (IMPALA deep ResNet,
+12. breakout: `loop.train` with the BREAKOUT preset (IMPALA deep ResNet,
    LSTM(256) core, bf16 torso, 4 actions) as 4 thread actors x 8 envs
    for 12 learner steps, as pong_thread, once with the preset's unfused
    blocks and once with `fused_conv=True`.
-12. breakout_accum: the BREAKOUT preset at full width with the fused
+13. breakout_accum: the BREAKOUT preset at full width with the fused
    blocks, both memory levers (`grad_accum=2`, `remat_torso=True`), the
    lr scaled by B / 16 with a 4-step warmup and `publish_interval=2`:
    `loop.train` as in breakout for 12 steps (>= 2 V-trace, 42 LSTM-cell
@@ -149,7 +164,15 @@ non-zero (no phase's failure is caught):
    within 1e-3, with the bf16 torso below the bf16 torso's own distance
    and grad-norm change from the f32 one (plus 1e-3 of the grad norm);
    each lever's peak device memory below (1, off)'s.
-13. pong_transformer: the same with the PONG_TRANSFORMER preset
+14. breakout_superbatch: the BREAKOUT preset with the fused blocks at 2
+   steps a dispatch (the queue feed's in-place superbatch assembly) on 4
+   thread actors x 8 envs for 6 dispatches: V-trace exactly once a
+   learner step, >= 21 LSTM-cell and >= 6 residual-block launches a
+   learner step; the cell (B = 32) and the block (N = 672, its three
+   shapes) held to their plain versions on the run's own first learner
+   inputs, at the gates of phases 4 and 5. No profiled run (≈ 45 s on
+   the card): the smoke stays near half its time limit.
+15. pong_transformer: the same with the PONG_TRANSFORMER preset
    (Nature-CNN bf16 torso, transformer core d_model 256, 2 layers, 4
    heads, window 128) for 12 learner steps with the attention kernels
    forced and `fused_epilogue=True`; it must launch the attention
@@ -209,6 +232,12 @@ PONG_THREAD_STEPS = 12
 RING_PROBE_BATCHES = 4
 BREAKOUT_STEPS = 12
 PROFILED_STEPS = 8
+# The superbatch phases: Pong with --superbatch-k 4 for 20 dispatches,
+# Breakout fused at 2 steps a dispatch for 6.
+SUPERBATCH_K = 4
+PONG_SUPERBATCH_DISPATCHES = 20
+BREAKOUT_SUPERBATCH_K = 2
+BREAKOUT_SUPERBATCH_DISPATCHES = 6
 # B, F, H: the learner's and the actors' shapes first (both timed), then
 # ragged ones: one unit, K tiled past one stage, two row tiles; last,
 # breakout_accum's microbatch (B = 32 / 2).
@@ -1310,11 +1339,11 @@ def phase_model(device):
     emit(result)
 
 
-def fixed_batch(cfg, device, state):
+def fixed_batch(cfg, device, state, seed=5):
     """A full-size device batch for timing the train step alone."""
     import torch
 
-    rng = np.random.default_rng(5)
+    rng = np.random.default_rng(seed)
     T, B, A = cfg.unroll_length, cfg.batch_size, cfg.num_actions
     return (
         torch.from_numpy(rng.integers(0, 256, size=(T + 1, B, 84, 84, 4), dtype=np.uint8)).to(device),
@@ -1346,16 +1375,21 @@ def train_args(cfg, device, learner_fields=None):
     )
 
 
+# Each `drive` run's phase line, by name, for later phases to read.
+PHASE_LINES = {}
+
+
 def drive(name, cfg, steps, device, standalone=True, at_step5=None, after=None,
-          learner_fields=None):
+          learner_fields=None, profiled=True):
     """`loop.train` with `cfg` for `steps` learner steps on the card, every
     kernel's launch count set to 0 just before and read just after; then,
     with `standalone`, the train step alone on a fixed batch, one actor
-    alone and one fake env step; and a profiled short run for the
-    device's idle share. `at_step5()` runs in the logger at the 5th
-    learner step; its dict goes, as `seen`, to `after(result, seen)`,
-    which runs after the run and returns a dict merged into the phase
-    line. `learner_fields` replace fields of the LearnerConfig. Raises if
+    alone and one fake env step; and, with `profiled`, a profiled short
+    run for the device's idle share. `at_step5()` runs in the logger at
+    the first logged learner step from the 5th on (the 5th at one step a
+    dispatch, the 8th at K = 4); its dict goes, as `seen`, to
+    `after(result, seen)`, which runs after the run and returns a dict
+    merged into the phase line. `learner_fields` replace fields of the LearnerConfig. Raises if
     the run did not train on the card."""
     import torch
 
@@ -1371,7 +1405,7 @@ def drive(name, cfg, steps, device, standalone=True, at_step5=None, after=None,
 
     def logger(logs):
         log_times.append((logs["num_steps"], time.monotonic(), logs["total_loss"]))
-        if at_step5 is not None and logs["num_steps"] == 5:
+        if at_step5 is not None and logs["num_steps"] >= 5 and not seen:
             seen.update(at_step5())
 
     torch.cuda.reset_peak_memory_stats()
@@ -1455,29 +1489,36 @@ def drive(name, cfg, steps, device, standalone=True, at_step5=None, after=None,
             **train_args(cfg, device, learner_fields),
         )
 
-    t0 = time.perf_counter()
-    busy_us, _ = profiling.device_us(short_run, calls=1)
-    profiled_wall_us = (time.perf_counter() - t0) * 1e6
-    emit(
-        {
-            "phase": name,
-            "actors": f"{cfg.actor_mode} {cfg.num_actors} x {cfg.envs_per_actor}",
-            "traj_ring": cfg.traj_ring,
-            "learner_steps": learner.num_steps,
-            "launches": launches,
-            "launches_per_learner_step": {k: v / steps for k, v in launches.items()},
-            "final_loss": final_loss,
-            "train_wall_s": wall,
-            "learner_steps_per_s": steps_per_s,
-            "env_frames_per_s": steps_per_s * T * B,
-            "profiled_run_wall_s": profiled_wall_us / 1e6,
-            "profiled_run_device_idle_share": (
-                None if busy_us is None else 1.0 - busy_us / profiled_wall_us
-            ),
-            "max_memory_allocated_mb": peak_mb,
-            **extra,
-        }
-    )
+    busy_us = profiled_wall_us = None
+    if profiled:
+        t0 = time.perf_counter()
+        busy_us, _ = profiling.device_us(short_run, calls=1)
+        profiled_wall_us = (time.perf_counter() - t0) * 1e6
+    K = learner._config.steps_per_dispatch
+    line = {
+        "phase": name,
+        "actors": f"{cfg.actor_mode} {cfg.num_actors} x {cfg.envs_per_actor}",
+        "traj_ring": cfg.traj_ring,
+        "steps_per_dispatch": K,
+        "donate_batch": learner._config.donate_batch,
+        "learner_steps": learner.num_steps,
+        "launches": launches,
+        "launches_per_learner_step": {k: v / steps for k, v in launches.items()},
+        "launches_per_dispatch": {k: v * K / steps for k, v in launches.items()},
+        "final_loss": final_loss,
+        "train_wall_s": wall,
+        "learner_steps_per_s": steps_per_s,
+        "env_frames_per_s": steps_per_s * T * B,
+        "profiled_run_wall_s": None if profiled_wall_us is None else profiled_wall_us / 1e6,
+        "profiled_run_device_idle_share": (
+            None if busy_us is None else 1.0 - busy_us / profiled_wall_us
+        ),
+        "max_memory_allocated_mb": peak_mb,
+        "param_lag_frames_final": result.final_logs["param_lag_frames"],
+        **extra,
+    }
+    PHASE_LINES[name] = line
+    emit(line)
     return launches
 
 
@@ -1795,6 +1836,204 @@ def phase_pong(device):
     return runs["pong"]
 
 
+class CaptureInputs:
+    """While installed, `module.<name>` is wrapped: for each key that
+    `key(args, kwargs)` returns for a call (None: not kept), a clone of the
+    first such call's arguments is kept in `captured`. The calls go through
+    unchanged, so the wrapper's launch count still counts them."""
+
+    def __init__(self, module, name, key):
+        self.module, self.name, self.key, self.captured = module, name, key, {}
+
+    def __enter__(self):
+        import torch
+
+        original = self._saved = getattr(self.module, self.name)
+        probe = self
+
+        def clone(x):
+            return x.detach().clone() if isinstance(x, torch.Tensor) else x
+
+        def wrapper(*args, **kwargs):
+            key = probe.key(args, kwargs)
+            if key is not None and key not in probe.captured:
+                probe.captured[key] = ([clone(a) for a in args],
+                                       {k: clone(v) for k, v in kwargs.items()})
+            return original(*args, **kwargs)
+
+        setattr(self.module, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self._saved)
+
+
+class DonationProbe:
+    """While installed, reads at every ring slot release whether the event
+    the learner recorded after the step that consumed the slot (handed
+    back with it under donate_batch) has completed. `check` fails on a
+    release that found it pending or found none."""
+
+    def __init__(self):
+        self.events, self.released = {}, []
+
+    def __enter__(self):
+        from torched_impala_tpu_torch.runtime import learner, traj_ring
+
+        probe = self
+        hand_back, release = self._saved = (learner.Learner._hand_back,
+                                            traj_ring.TrajectoryRing.release)
+
+        def recording_hand_back(learner_self, slot, event):
+            probe.events[(id(learner_self.traj_ring), slot)] = event
+            hand_back(learner_self, slot, event)
+
+        def recording_release(ring_self, slot):
+            event = probe.events.pop((id(ring_self), slot), None)
+            probe.released.append(event is not None and event.query())
+            release(ring_self, slot)
+
+        learner.Learner._hand_back = recording_hand_back
+        traj_ring.TrajectoryRing.release = recording_release
+        return self
+
+    def __exit__(self, *exc):
+        from torched_impala_tpu_torch.runtime import learner, traj_ring
+
+        learner.Learner._hand_back, traj_ring.TrajectoryRing.release = self._saved
+
+    def check(self) -> int:
+        if not self.released or not all(self.released):
+            raise AssertionError(f"donation: releases before their step's event: {self.released}")
+        return len(self.released)
+
+
+def fixed_superbatch(cfg, device, K, seed=5):
+    """K fixed full-size batches stacked on a leading axis."""
+    import torch
+
+    batches = [fixed_batch(cfg, device, (), seed=seed + k) for k in range(K)]
+    return (*(torch.stack([b[i] for b in batches]) for i in range(6)), ())
+
+
+def phase_pong_superbatch(device, smi):
+    """The PONG preset as `--superbatch-k 4` configures it (32 worker
+    processes, superbatch ring slots, donate_batch, 4 steps a dispatch):
+    `loop.train` for 20 dispatches (module docstring, phase 10)."""
+    import torch
+
+    from torched_impala_tpu_torch import configs, run
+    from torched_impala_tpu_torch.ops import profiling, vtrace_cuda
+    from torched_impala_tpu_torch.ops.vtrace import vtrace_reference
+    from torched_impala_tpu_torch.runtime.learner import Learner, superbatch_slice
+    from torched_impala_tpu_torch.runtime.traj_ring import TrajectoryRing
+
+    K = SUPERBATCH_K
+    steps = K * PONG_SUPERBATCH_DISPATCHES
+    cfg = run.build_config(run.parse_args(
+        ["--config", "pong", "--fake-envs", "--total-steps", str(steps), "--superbatch-k", str(K)]))
+    assert (cfg.actor_mode, cfg.num_actors, cfg.traj_ring, cfg.steps_per_dispatch,
+            cfg.donate_batch) == ("process", 32, True, K, True)
+    T, B = cfg.unroll_length, cfg.batch_size
+
+    def after(result, seen):
+        learner = result.learner
+        ring = learner.traj_ring
+        shapes = {tuple(s.tensors.obs.shape) for s in ring._slots}
+        pinned = all(t.is_pinned() for s in ring._slots for t in s.tensors[:6])
+        want_slots = learner._config.device_queue_depth + 4
+        if shapes != {(K, T + 1, B, 84, 84, 4)} or not pinned or ring.num_slots != want_slots:
+            raise AssertionError(f"pong_superbatch: slots {shapes}, pinned {pinned}, "
+                                 f"{ring.num_slots} of them, want {want_slots}")
+        return dict(
+            check_workers("pong_superbatch", result, seen),
+            ring_slots=ring.num_slots,
+            ring_slot_obs_shape=list(shapes.pop()),
+            ring_slots_pinned=pinned,
+            ring_slot_bytes=sum(t.nbytes for t in ring._slots[0].tensors[:6]),
+        )
+
+    # The pinned slots alone: the same ring as the run's, timed.
+    import resource
+
+    t0 = time.perf_counter()
+    ring = TrajectoryRing(
+        num_slots=configs.make_learner_config(cfg).device_queue_depth + 4, unroll_length=T,
+        batch_size=B, example_obs=np.zeros(cfg.obs_shape, np.uint8), num_actions=cfg.num_actions,
+        pin_memory=True, superbatch_k=K)
+    pinned_alloc_s = time.perf_counter() - t0
+    pinned_bytes = sum(t.nbytes for s in ring._slots for t in s.tensors[:6])
+    del ring
+    vtrace_key = CaptureInputs(vtrace_cuda, "vtrace_cuda", lambda a, kw: tuple(kw["log_rhos"].shape))
+    with DonationProbe() as donation, vtrace_key as captured:
+        launches = drive("pong_superbatch", cfg, steps, device, standalone=False,
+                         at_step5=processes_mid_run, after=after)
+    released = donation.check()
+    if launches["vtrace"] != steps:
+        raise AssertionError(f"pong_superbatch: {launches['vtrace']} vtrace launches, want "
+                             f"{K} a dispatch")
+    # V-trace held to its plain version on the run's own first learner input.
+    args, kwargs = captured.captured[(T, B)]
+    out, ref = vtrace_cuda.vtrace_cuda(**kwargs), vtrace_reference(**kwargs)
+    vtrace_err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
+    if not vtrace_err <= 1e-5:
+        raise AssertionError(f"pong_superbatch: vtrace vs plain {vtrace_err}")
+
+    # One dispatch against K train_steps on a fixed superbatch, from the
+    # same params, with cuDNN's deterministic algorithms: the same bits.
+    def learner_():
+        return Learner(agent=configs.make_agent(cfg, seed=0), optimizer=configs.make_optimizer(cfg),
+                       config=dataclasses.replace(configs.make_learner_config(cfg), traj_ring=False),
+                       device=device)
+
+    batch = fixed_superbatch(cfg, device, K)
+    dispatched, stepped = learner_(), learner_()
+    torch.backends.cudnn.deterministic = True
+    try:
+        logs_d = dispatched.train_dispatch(batch)
+        for k in range(K):
+            logs_s = stepped.train_step(superbatch_slice(batch, k))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    differ = [k for k, p in dispatched.params.items() if not torch.equal(p, stepped.params[k])]
+    differ += [k for k in logs_d if not torch.equal(logs_d[k], logs_s[k])]
+    if differ:
+        raise AssertionError(f"pong_superbatch: dispatch and {K} steps differ in {differ}")
+    # The dispatch alone, and one step alone, on the fixed superbatch.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch_ms = time_cuda(lambda: dispatched.train_dispatch(batch), iters=10, warmup=2)
+    dispatch_peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    step_ms = time_cuda(lambda: stepped.train_step(superbatch_slice(batch, 0)), iters=20, warmup=3)
+    dispatch_device_us, dispatch_kernels = profiling.device_us(
+        lambda: dispatched.train_dispatch(batch), calls=3)
+    ring_line = PHASE_LINES["pong_ring"]
+    emit({
+        "phase": "pong_superbatch_checks",
+        "card": smi,
+        "vtrace_launches_per_dispatch": launches["vtrace"] / PONG_SUPERBATCH_DISPATCHES,
+        "vtrace_max_abs_err_on_the_runs_input": vtrace_err,
+        "donated_releases_after_their_step_event": released,
+        "dispatch_equals_K_train_steps_bit_for_bit": True,
+        "cudnn_deterministic": True,
+        "dispatch_alone_ms": dispatch_ms,
+        "train_step_alone_ms": step_ms,
+        "dispatch_device_busy_ms": None if dispatch_device_us is None else dispatch_device_us / 1e3,
+        "kernels_per_dispatch": dispatch_kernels,
+        "dispatch_peak_mb": dispatch_peak_mb,
+        "pinned_ring_bytes": pinned_bytes,
+        "pinned_ring_alloc_s": pinned_alloc_s,
+        "rlimit_memlock": list(resource.getrlimit(resource.RLIMIT_MEMLOCK)),
+        "env_frames_per_s": {"pong_superbatch_K4": PHASE_LINES["pong_superbatch"]["env_frames_per_s"],
+                             "pong_ring_K1_same_call": ring_line["env_frames_per_s"]},
+        "param_lag_frames_final": {
+            "pong_superbatch_K4": PHASE_LINES["pong_superbatch"]["param_lag_frames_final"],
+            "pong_ring_K1_same_call": ring_line["param_lag_frames_final"]},
+    })
+    return launches
+
+
 def phase_breakout(device, fused):
     from torched_impala_tpu_torch import configs
 
@@ -1897,7 +2136,7 @@ def phase_breakout_accum(device, smi):
     """The BREAKOUT preset at full width with both memory levers, the
     batch-scaled lr with warmup and a publish interval: `loop.train` for
     BREAKOUT_STEPS steps on 4 thread actors x 8 envs, then checks of one
-    train step alone on a fixed batch (module docstring, phase 12)."""
+    train step alone on a fixed batch (module docstring, phase 13)."""
     import torch
 
     from torched_impala_tpu_torch import configs
@@ -2072,6 +2311,63 @@ def phase_breakout_accum(device, smi):
     )
     if failures:
         raise AssertionError(f"breakout_accum: {failures}")
+    return launches
+
+
+def phase_breakout_superbatch(device):
+    """BREAKOUT fused at 2 steps a dispatch (the queue feed's superbatch
+    assembly) on 4 thread actors x 8 envs for 6 dispatches; the LSTM cell
+    and the residual block held to their plain versions on the run's own
+    learner inputs (module docstring, phase 14)."""
+    import torch
+
+    from torched_impala_tpu_torch import configs
+    from torched_impala_tpu_torch.ops import conv_block, conv_block_cuda, lstm, lstm_cuda
+
+    K = BREAKOUT_SUPERBATCH_K
+    steps = K * BREAKOUT_SUPERBATCH_DISPATCHES
+    cfg = dataclasses.replace(configs.BREAKOUT, actor_mode="thread", num_actors=4,
+                              envs_per_actor=8, fused_conv=True, steps_per_dispatch=K)
+    T, B = cfg.unroll_length, cfg.batch_size
+    assert cfg.num_actors * cfg.envs_per_actor == B == 32
+    learner_n = (T + 1) * B
+    cells = CaptureInputs(lstm_cuda, "lstm_cell_cuda",
+                          lambda a, kw: tuple(a[0].shape) if a[0].shape[0] == B else None)
+    blocks = CaptureInputs(conv_block_cuda, "resblock_cuda",
+                           lambda a, kw: tuple(a[0].shape) if a[0].shape[0] == learner_n else None)
+    with cells, blocks:
+        launches = drive("breakout_superbatch", cfg, steps, device, standalone=False,
+                         profiled=False)
+    if launches["vtrace"] != steps:
+        raise AssertionError(f"breakout_superbatch: {launches['vtrace']} vtrace launches, want {steps}")
+    if launches["lstm_cell"] < (T + 1) * steps:
+        raise AssertionError(f"breakout_superbatch: {launches['lstm_cell']} lstm launches < 21 a step")
+    if launches["resblock"] < 6 * steps:
+        raise AssertionError(f"breakout_superbatch: {launches['resblock']} resblock launches < 6 a step")
+    errors = {}
+    for shape, (args, _) in cells.captured.items():
+        out, ref = lstm_cuda.lstm_cell_cuda(*args), lstm.lstm_reference(*args)
+        errors["lstm_cell_" + "x".join(map(str, shape))] = max(
+            float((a - b).abs().max()) for a, b in zip(out, ref))
+    equal = {}
+    for shape, (args, _) in blocks.captured.items():
+        out, ref = conv_block_cuda.resblock_cuda(*args), conv_block.block_reference(*args)
+        key = "resblock_" + "x".join(map(str, shape))
+        torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_ULP, atol=BF16_ULP)
+        errors[key] = float((out.float() - ref.float()).abs().max())
+        equal[key] = float((out == ref).float().mean())
+    if len(cells.captured) != 1 or len(blocks.captured) != 3:
+        raise AssertionError(f"breakout_superbatch: captured {list(cells.captured)} "
+                             f"{list(blocks.captured)}")
+    lstm_err = max(v for k, v in errors.items() if k.startswith("lstm"))
+    if not lstm_err <= LSTM_ATOL or min(equal.values()) < 0.99:
+        raise AssertionError(f"breakout_superbatch: kernels vs plain {errors}, equal {equal}")
+    emit({
+        "phase": "breakout_superbatch_checks",
+        "launches_per_learner_step": {k: launches[k] / steps for k in ("vtrace", "lstm_cell", "resblock")},
+        "max_abs_err_on_the_runs_inputs": errors,
+        "resblock_equal_share": equal,
+    })
     return launches
 
 
@@ -2586,10 +2882,12 @@ def run_phases():
     phase_model(device)
     # Each kernel's launches come from the main path that runs it.
     launches = {"vtrace": phase_pong(device)["vtrace"]}
+    phase_pong_superbatch(device, smi)
     phase_resume(device, smi)
     launches["lstm_cell"] = phase_breakout(device, fused=False)["lstm_cell"]
     launches["resblock"] = phase_breakout(device, fused=True)["resblock"]
     phase_breakout_accum(device, smi)
+    phase_breakout_superbatch(device)
     transformer_launches = phase_pong_transformer(device)
     for name in ("fused_loss_fwd", "fused_loss_bwd", "attention_fwd", "attention_bwd"):
         launches[name] = transformer_launches[name]

@@ -1090,7 +1090,8 @@ def _ring_feed_batches(device, use_ring, batches=5, T=5, E=2, B=4):
         for _ in range(batches):
             for _ in range(B // E):
                 actor.unroll_and_push()
-            arrays, version, event = learner._batch_q.get(timeout=60)
+            arrays, version, event, donated = learner._batch_q.get(timeout=60)
+            assert donated is None  # donate_batch is off
             assert (event is not None) == use_ring
             if event is not None:
                 event.synchronize()
@@ -1350,6 +1351,137 @@ def test_grad_accum_breakout_step_matches_the_full_batch(cuda):
     assert abs(n32g - n32) <= 1e-3 * n32
     assert _step_distance(p16g, p16, before) < _step_distance(p16, p32, before)
     assert abs(n16g - n16) <= abs(n16 - n32) + 1e-3 * n32
+
+
+def _pong_superbatch(device, K, seed=5):
+    """A fixed Pong superbatch on the card, `[K, 21, 32, ...]` leaves."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    T, B, A = 20, 32, 6
+
+    def dev(a):
+        return torch.from_numpy(a).to(device)
+
+    return (
+        dev(rng.integers(0, 256, size=(K, T + 1, B, 84, 84, 4), dtype=np.uint8)),
+        dev(rng.uniform(size=(K, T + 1, B)) < 0.05),
+        dev(rng.integers(0, A, size=(K, T, B))),
+        dev(rng.normal(size=(K, T, B, A)).astype(np.float32)),
+        dev((rng.uniform(size=(K, T, B)) < 0.05).astype(np.float32)),
+        dev(np.ones((K, T, B), np.float32)),
+        (),
+    )
+
+
+@pytest.mark.gpu
+def test_superbatch_dispatch_equals_sequential_train_steps_on_the_card(cuda):
+    """One K = 4 dispatch of the Pong preset at full width (bf16 torso)
+    against four `train_step`s of a twin learner on the superbatch's
+    slices, from the same state: the same params and last logs bit for
+    bit, with cuDNN's deterministic algorithms (two plain steps may
+    differ without them)."""
+    import dataclasses
+
+    from torched_impala_tpu_torch import configs
+    from torched_impala_tpu_torch.runtime.learner import Learner, superbatch_slice
+
+    K = 4
+    cfg = dataclasses.replace(configs.PONG, steps_per_dispatch=K)
+    learners = [
+        Learner(agent=configs.make_agent(cfg, seed=0), optimizer=configs.make_optimizer(cfg),
+                config=configs.make_learner_config(cfg), device=cuda)
+        for _ in range(2)
+    ]
+    batch = _pong_superbatch(cuda, K)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        dispatched = learners[0].train_dispatch(batch)
+        for k in range(K):
+            stepped = learners[1].train_step(superbatch_slice(batch, k))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    for name, p in learners[0].params.items():
+        assert torch.equal(p, learners[1].params[name]), name
+    for key, v in dispatched.items():
+        assert torch.equal(v, stepped[key]), key
+    assert learners[0]._optimizer.count == learners[1]._optimizer.count == K
+
+
+@pytest.mark.gpu
+def test_donated_slot_is_released_only_after_its_step_event(cuda):
+    """Donated superbatch ring slots on the card (K = 2): each dispatch
+    sleeps ~0.2 s on the train step's stream after its steps, and every
+    slot's release must find the event recorded after its consuming step
+    completed. A release after the slot's copy alone would come during
+    the sleep. Every handed-back slot is released, without the batcher
+    waiting on an event."""
+    import dataclasses
+    import threading
+    import time
+
+    import numpy as np
+
+    from torched_impala_tpu_torch import configs
+    from torched_impala_tpu_torch.envs.fake import ScriptedEnv
+    from torched_impala_tpu_torch.runtime.learner import Learner
+    from torched_impala_tpu_torch.runtime.traj_ring import TrajectoryRing
+    from torched_impala_tpu_torch.runtime.vector_actor import VectorActor
+
+    T, B, E, K, dispatches = 5, 4, 2, 2, 3
+    cfg = dataclasses.replace(configs.CARTPOLE, use_lstm=True, lstm_size=8, unroll_length=T,
+                              batch_size=B, traj_ring=True, steps_per_dispatch=K,
+                              donate_batch=True)
+    agent = configs.make_agent(cfg, seed=2)
+    learner = Learner(agent=agent, optimizer=configs.make_optimizer(cfg),
+                      config=configs.make_learner_config(cfg), device=cuda,
+                      example_obs=np.zeros((4,), np.float32))
+    ring = learner.traj_ring
+    assert ring.num_slots == learner._batch_q.maxsize + 4
+    events, released, lock = {}, [], threading.Lock()
+    dispatch, hand_back, release = Learner.train_dispatch, Learner._hand_back, ring.release
+
+    def slow_dispatch(arrays):
+        logs = dispatch(learner, arrays)
+        torch.cuda._sleep(CAPTURE_SLEEP_CYCLES)
+        return logs
+
+    def recording_hand_back(slot, event):
+        assert event is not None
+        with lock:
+            events[slot] = event
+        hand_back(learner, slot, event)
+
+    def recording_release(s):
+        with lock:
+            event = events.pop(s, None)
+        released.append((s, event is not None and event.query()))
+        release(s)
+
+    learner.train_dispatch, learner._hand_back, ring.release = (
+        slow_dispatch, recording_hand_back, recording_release)
+    actor = VectorActor(actor_id=0, envs=[ScriptedEnv(episode_len=4) for _ in range(E)],
+                        agent=agent, param_store=learner.param_store, enqueue=learner.enqueue,
+                        unroll_length=T, device=cuda, seed=3, traj_ring=ring)
+    learner.start()
+    try:
+        for _ in range(dispatches):
+            for _ in range(K * B // E):
+                actor.unroll_and_push()
+            learner.step_once(timeout=60)
+        deadline = time.monotonic() + 10
+        while len(released) < dispatches and time.monotonic() < deadline:
+            time.sleep(0.01)
+    finally:
+        learner.stop()
+        learner.join()
+    assert len(released) == dispatches, released
+    assert all(done for _, done in released), released
+    assert learner.num_steps == K * dispatches
+    assert all(t.is_pinned() for slot in ring._slots for t in slot.tensors[:6])
+    assert ring._slots[0].tensors.obs.shape == (K, T + 1, B, 4)
 
 
 def test_wrappers_refuse_cpu_tensors():

@@ -122,14 +122,18 @@ def test_unported_paths_raise():
                 example_obs=np.zeros((4,), np.float32), num_actions=2)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1: Replay"):
         TrajectoryRing(**ring, max_reuse=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1: The learner step's launches"):
-        TrajectoryRing(**ring, superbatch_k=2)
+    # Superbatch slots are ported: K = 2 slots of K*B columns.
+    superbatch = TrajectoryRing(**ring, superbatch_k=2)
+    assert superbatch.total_cols == 4
+    assert superbatch._slots[0].arrays.obs.shape == (2, 3, 2, 4)
+    assert superbatch.validate_env_spec(np.zeros((4,), np.float32), 2) == []
     from torched_impala_tpu_torch.models.nets import ImpalaNet
     from torched_impala_tpu_torch.models.torsos import MLPTorso
 
     # The transformer core is ported; its sequence-parallel attention is not.
     for attention in ("ring", "ulysses"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md queue 1: DP and multi-process training"):
             ImpalaNet(2, MLPTorso(4, (8,)), core="transformer",
                       transformer=dict(d_model=8, num_heads=2, attention=attention))
 

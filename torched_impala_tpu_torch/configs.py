@@ -79,12 +79,18 @@ class ExperimentConfig:
     traj_ring: bool = False
     unroll_length: int = 20
     batch_size: int = 8
+    # K SGD steps a dispatch on a [K, T+1, B, ...] superbatch (the
+    # learner's steps_per_dispatch): params publish every K steps at most.
+    steps_per_dispatch: int = 1
+    # Ring slots are released only after the step that consumed them
+    # (LearnerConfig.donate_batch); `--superbatch-k` sets it with the ring.
+    donate_batch: bool = False
     total_env_frames: int = 1_000_000
     lr: float = 6e-4
     lr_anneal: bool = True  # linear anneal to 0 over total_learner_steps
     # Large-batch operating point (arxiv 1803.02811's linear scaling):
-    # with lr_scale_ref_batch > 0 the base lr is lr * (B / lr_scale_ref_batch)
-    # (`scaled_base_lr`), and lr_warmup_steps learner steps ramp linearly
+    # with lr_scale_ref_batch > 0 the base lr is lr * (B * K /
+    # lr_scale_ref_batch), B * K the effective batch (`scaled_base_lr`), and lr_warmup_steps learner steps ramp linearly
     # 0 -> base before the anneal begins. The schedule is indexed by the
     # optimizer's count, so a run restored mid-warmup resumes on the ramp.
     lr_scale_ref_batch: int = 0
@@ -275,18 +281,19 @@ def make_learner_config(cfg: ExperimentConfig) -> LearnerConfig:
         ),
         max_grad_norm=cfg.max_grad_norm,
         traj_ring=cfg.traj_ring,
+        steps_per_dispatch=cfg.steps_per_dispatch,
+        donate_batch=cfg.donate_batch,
     )
 
 
 def scaled_base_lr(cfg: ExperimentConfig) -> float:
-    """cfg.lr linearly scaled by the effective batch against
-    `lr_scale_ref_batch` (arxiv 1803.02811); 0 turns the scaling off. The
-    effective batch is `batch_size`: JAX's is batch_size *
-    steps_per_dispatch, and the port has no superbatches yet (ROADMAP.md
-    queue 1: The learner step's launches, then the rest of the learner)."""
+    """cfg.lr linearly scaled by the effective batch, `batch_size *
+    steps_per_dispatch` (B * K, as JAX's), against `lr_scale_ref_batch`
+    (arxiv 1803.02811); 0 turns the scaling off."""
     if cfg.lr_scale_ref_batch <= 0:
         return cfg.lr
-    return cfg.lr * (cfg.batch_size / cfg.lr_scale_ref_batch)
+    effective_batch = cfg.batch_size * max(1, cfg.steps_per_dispatch)
+    return cfg.lr * (effective_batch / cfg.lr_scale_ref_batch)
 
 
 def make_lr_schedule(cfg: ExperimentConfig):

@@ -163,7 +163,7 @@ class TransformerCore(nn.Module):
         if attention in ("ring", "ulysses"):
             raise NotImplementedError(
                 f"attention={attention!r} (sequence-parallel) is not ported yet: "
-                "it needs the DP/SP port (ROADMAP.md queue 1, item 10)"
+                "it needs the DP/SP port (ROADMAP.md queue 1: DP and multi-process training)"
             )
         if attention != "dense":
             raise ValueError(f"attention={attention!r}; expected 'dense'")

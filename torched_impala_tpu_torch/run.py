@@ -15,12 +15,21 @@ train mode with fake envs only).
         --total-steps 100 [--fused-epilogue] [--device cpu]
 
     python -m torched_impala_tpu_torch.run --config pong --fake-envs \\
+        --total-steps 100 --superbatch-k 4 [--device cpu]
+
+    python -m torched_impala_tpu_torch.run --config pong --fake-envs \\
         --total-steps 1000 --checkpoint-dir DIR --async-checkpoint \\
         --checkpoint-interval 100 [--resume] [--chaos-plan PLAN.json]
 
 `--grad-accum G` sums the grads of G microbatches of B/G before each
 optimizer step and `--remat-torso` runs the torso's forward again in the
 backward: the two memory levers, each the same update as without it.
+
+`--steps-per-dispatch K` takes K SGD steps a dispatch on a [K, ...]
+superbatch (the params publish every K steps at most; a step budget that
+K does not divide runs its largest multiple of K and warns).
+`--superbatch-k K` bundles it with the trajectory ring's superbatch slots
+and `donate_batch` (a slot is released after the step that consumed it).
 
 The default device is the CUDA card; without one the run fails unless
 `--device cpu` is given.
@@ -69,6 +78,12 @@ RESUME_CPU_EXAMPLE = (
     CPU_EXAMPLE.replace("--total-steps 3", "--total-steps 6")
     + " --checkpoint-dir {dir} --async-checkpoint --checkpoint-interval 2 --resume",
 )
+# Superbatch ring slots donated into the K-step dispatch, on the Pong
+# preset's process actors.
+SUPERBATCH_CPU_EXAMPLE = (
+    "--config pong --fake-envs --num-actors 2 --batch-size 4 --unroll-length 4 "
+    "--total-steps 4 --superbatch-k 2 --device cpu"
+)
 PONG_TRANSFORMER_CPU_EXAMPLE = (
     CPU_EXAMPLE.replace("--config pong", "--config pong_transformer")
     + " --fused-epilogue"
@@ -95,6 +110,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--unroll-length", type=int, default=None)
     p.add_argument("--total-steps", type=int, required=True,
                    help="learner updates to run")
+    p.add_argument("--steps-per-dispatch", type=int, default=None, metavar="K",
+                   help="K SGD steps a dispatch on a [K, ...] superbatch "
+                   "(params publish every K steps at most)")
+    p.add_argument("--superbatch-k", type=int, default=None, metavar="K",
+                   help="the trajectory ring with [K, ...] superbatch slots, "
+                   "released after the step that consumed them, into the "
+                   "K-step dispatch (sets --traj-ring, --steps-per-dispatch "
+                   "K and donate_batch)")
     p.add_argument("--fused-conv", action="store_true",
                    help="residual blocks through the fused block kernel "
                    "(deep_resnet only)")
@@ -157,7 +180,10 @@ def build_config(args: argparse.Namespace) -> configs.ExperimentConfig:
         "fused_epilogue": args.fused_epilogue or None,
         "transformer_dtype": args.transformer_dtype,
         "remat_torso": args.remat_torso or None,
+        "steps_per_dispatch": args.steps_per_dispatch,
     }
+    if args.superbatch_k is not None:
+        overrides.update(traj_ring=True, steps_per_dispatch=args.superbatch_k, donate_batch=True)
     cfg = configs.PRESETS[args.config]
     return dataclasses.replace(
         cfg, **{k: v for k, v in overrides.items() if v is not None}

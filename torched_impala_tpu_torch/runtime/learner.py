@@ -9,7 +9,7 @@ it over through a bounded queue (double buffering). The ring feed
 (`LearnerConfig.traj_ring`): actors write their unrolls straight into the
 batch slots of a `TrajectoryRing`, and the batcher copies each completed
 slot to the device as it is (`_ring_batcher_loop`). `step_once` takes one
-batch and one SGD step:
+batch and one SGD step (K of them with `steps_per_dispatch`, below):
 
     unroll the net over [T+1, B] from the batch's start state ->
     impala_loss (V-trace on the device: the CUDA kernel on the card; with
@@ -33,6 +33,27 @@ graph freed before the next is built, and its grads are summed into one
 f32 accumulator list (divided by G for reduction="mean"); then one clip
 and one optimizer step. Only one microbatch's activations are alive at a
 time: the memory lever of JAX's microbatch scan.
+
+With `steps_per_dispatch=K > 1` (JAX's K-step dispatch) one batch is a
+`[K, T+1, B, ...]` superbatch: the queue feed's batcher collects K rounds
+of B unrolls and stacks each in place into its `[k]` slice of one host
+buffer (`_assemble_superbatch`), or the ring's superbatch slot already is
+one; one host-to-device copy moves it, and `train_dispatch` takes K
+`train_step`s over its slices back to back, with no host sync between
+them (grad_accum nests inside each). The counters advance by K steps and
+K*T*B frames a dispatch, and publish and log fire on the dispatch that
+crosses their interval (`crossed_interval`). JAX's chunked fallback
+(`_run_fused_chunked`: a K > 4 superbatch dispatched in chunks of 4,
+because XLA on the TPU refuses its layouts) is not ported: nothing here
+refuses a K.
+
+With `donate_batch` and the ring, a slot lives until the step that
+consumed it has finished, not only until its copy: on the card the
+learner records an event on the train step's stream after the K-th step
+and hands (slot, event) back to the batcher, which releases the slot once
+the event has completed, without waiting for it; on the CPU the step
+reads the slot itself (no staging clone) and hands it back when it
+returns.
 """
 
 from __future__ import annotations
@@ -43,6 +64,7 @@ import queue
 import sys
 import threading
 import time
+import warnings
 from typing import Any, Callable, Mapping, Optional, Sequence
 
 import numpy as np
@@ -95,14 +117,41 @@ class LearnerConfig:
     # unrolls straight into [T+1, B, ...] batch slots (pinned host memory
     # on the card) and the batcher copies a completed slot to the device
     # on a side stream, with no host stacking. Every actor's env count
-    # must divide batch_size (loop.train checks).
+    # must divide batch_size (loop.train checks). With steps_per_dispatch
+    # K > 1 the slots are superbatch slots, [K, T+1, B, ...].
     traj_ring: bool = False
+    # K SGD steps a dispatch on a [K, T+1, B, ...] superbatch (module
+    # docstring). Params publish and logs land on the dispatch that crosses
+    # their interval, so the actors may lag up to K - 1 more updates, and
+    # the ring's slots wait for K*B columns. K >= 1.
+    steps_per_dispatch: int = 1
+    # The ring slot is the step's own input and is released only after the
+    # step that consumed it (module docstring); the ring gets two more slots
+    # for the longer hold. On the queue feed the device batch already
+    # belongs to the step, and this changes nothing. Results are bit for
+    # bit those without it. JAX also refuses it with data_device and with
+    # replay, which the port has not yet (ROADMAP.md queue 1: Feed-path and
+    # layout options; Replay): add both refusals when they land.
+    donate_batch: bool = False
 
 
-def stack_trajectories(trajs: list[Trajectory]) -> Trajectory:
+def stack_trajectories(trajs: list[Trajectory], out: Optional[Trajectory] = None) -> Trajectory:
     """Stack B unrolls into one time-major batch: leaves `[T(+1), B, ...]`;
     the agent_state leaves (batch 1 each) concatenate on axis 0, keeping
-    the state's type."""
+    the state's type.
+
+    `out` (preallocated arrays or views of the result's shapes) takes the
+    stack in place: the K-step batcher passes the `[k]` slices of its
+    `[K, ...]` superbatch, so each unroll is copied once."""
+    if out is not None:
+        for name in ("obs", "first", "actions", "behaviour_logits", "rewards", "cont"):
+            np.stack([getattr(t, name) for t in trajs], axis=1, out=getattr(out, name))
+        map_state(
+            lambda dst, *leaves: np.concatenate(leaves, axis=0, out=dst),
+            out.agent_state,
+            *(t.agent_state for t in trajs),
+        )
+        return out._replace(actor_id=-1, param_version=min(t.param_version for t in trajs))
     return Trajectory(
         obs=np.stack([t.obs for t in trajs], axis=1),
         first=np.stack([t.first for t in trajs], axis=1),
@@ -119,13 +168,15 @@ def stack_trajectories(trajs: list[Trajectory]) -> Trajectory:
     )
 
 
-def alloc_stack_buffers(trajs: list[Trajectory]) -> Trajectory:
-    """Empty arrays shaped and typed as `stack_trajectories(trajs)`' output
-    (the trajectory ring's slots take these shapes)."""
+def alloc_stack_buffers(trajs: list[Trajectory], K: Optional[int] = None) -> Trajectory:
+    """Empty arrays shaped and typed as `stack_trajectories(trajs)`' output,
+    or with K a `[K, ...]` superbatch of K such batches (the trajectory
+    ring's slots take these shapes)."""
     t0, B = trajs[0], len(trajs)
+    lead = () if K is None else (K,)
 
     def stacked(x):
-        return np.empty((x.shape[0], B) + x.shape[1:], x.dtype)
+        return np.empty(lead + (x.shape[0], B) + x.shape[1:], x.dtype)
 
     return Trajectory(
         obs=stacked(t0.obs),
@@ -135,11 +186,32 @@ def alloc_stack_buffers(trajs: list[Trajectory]) -> Trajectory:
         rewards=stacked(t0.rewards),
         cont=stacked(t0.cont),
         agent_state=map_state(
-            lambda x: np.empty((B * x.shape[0],) + x.shape[1:], x.dtype), t0.agent_state
+            lambda x: np.empty(lead + (B * x.shape[0],) + x.shape[1:], x.dtype), t0.agent_state
         ),
         actor_id=-1,
         param_version=0,
     )
+
+
+def stack_superbatch(batches: list[Trajectory]) -> Trajectory:
+    """Stack K batches on a new leading axis: leaves `[K, T(+1), B, ...]`,
+    agent_state leaves `[K, B, ...]`; the param version is the least of
+    the K. The reference the in-place assembly is tested against (it
+    copies each batch a second time; the batcher stacks each round into
+    its slice instead)."""
+    return Trajectory(
+        *(np.stack([b[i] for b in batches]) for i in range(6)),
+        agent_state=map_state(lambda *leaves: np.stack(leaves), *(b.agent_state for b in batches)),
+        actor_id=-1,
+        param_version=min(b.param_version for b in batches),
+    )
+
+
+def superbatch_slice(arrays: tuple, k: int) -> tuple:
+    """Batch k of a device superbatch (`_to_device`'s tuple with `[K, ...]`
+    leaves): views, contiguous since k indexes the leading axis."""
+    *tb, state = arrays
+    return (*(x[k] for x in tb), map_state(lambda x: x[k], state))
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -185,6 +257,9 @@ class Learner:
         self._config = config
         self._device = torch.device(device)
         self._logger = logger
+        K = config.steps_per_dispatch
+        if K < 1:
+            raise ValueError(f"steps_per_dispatch must be >= 1, got {K}")
         G = config.grad_accum
         if G < 1:
             raise ValueError(f"grad_accum must be >= 1, got {G}")
@@ -205,10 +280,11 @@ class Learner:
         self.num_frames = 0
         self.num_steps = 0
         self.last_batch_device: Optional[torch.device] = None
-        # By default actors may lead by two batches, and two device batches
-        # are in flight (double buffering).
+        # By default actors may lead by two dispatches' worth of unrolls (a
+        # dispatch takes K*B), and two device batches are in flight (double
+        # buffering).
         self._traj_q: queue.Queue = queue.Queue(
-            maxsize=config.queue_capacity or 2 * config.batch_size
+            maxsize=config.queue_capacity or 2 * config.batch_size * K
         )
         self._batch_q: queue.Queue = queue.Queue(maxsize=config.device_queue_depth)
         self._stop = threading.Event()
@@ -218,20 +294,26 @@ class Learner:
         self._wait_accum = 0.0
         self._last_log_t: Optional[float] = None
         self._last_log_frames = 0
+        # Donated ring slots the learner has handed back, (slot, event
+        # recorded after the consuming step or None), for the batcher.
+        self._consumed: collections.deque = collections.deque()
+        self._consumed_lock = threading.Lock()
         # The ring: the device queue's depth in slots in flight, one
-        # filling and one spare (JAX's count).
+        # filling and one spare, and two more under donate_batch, whose
+        # slots are held through their step (JAX's count).
         self.traj_ring: Optional[TrajectoryRing] = None
         if config.traj_ring:
             if example_obs is None:
                 raise ValueError("traj_ring needs example_obs to shape its slots")
             self.traj_ring = TrajectoryRing(
-                num_slots=self._batch_q.maxsize + 2,
+                num_slots=self._batch_q.maxsize + 2 + (2 if config.donate_batch else 0),
                 unroll_length=config.unroll_length,
                 batch_size=config.batch_size,
                 example_obs=example_obs,
                 num_actions=agent.net.num_actions,
                 agent_state_example=agent.initial_state(1),
                 pin_memory=self._device.type == "cuda",
+                superbatch_k=K,
             )
         self.param_store = ParamStore()
         self._publish()
@@ -260,6 +342,24 @@ class Learner:
             except queue.Empty:
                 continue
         return trajs
+
+    def _assemble_superbatch(self, K: int) -> Optional[Trajectory]:
+        """K rounds of B unrolls, each stacked in place into its `[k]`
+        slice of one `[K, ...]` host superbatch, so each unroll is copied
+        once (JAX's `_assemble_superbatch`); its param version is the
+        least of the K rounds'. None once stopped."""
+        sb, versions = None, []
+        for k in range(K):
+            trajs = self._collect()
+            if trajs is None:
+                return None
+            if sb is None:
+                sb = alloc_stack_buffers(trajs, K)
+            view = Trajectory(
+                *(x[k] for x in sb[:6]), agent_state=map_state(lambda x: x[k], sb.agent_state)
+            )
+            versions.append(stack_trajectories(trajs, out=view).param_version)
+        return sb._replace(param_version=min(versions))
 
     def _to_device(self, batch: Trajectory) -> tuple:
         dev = self._device
@@ -292,12 +392,16 @@ class Learner:
             if self.traj_ring is not None:
                 self._ring_batcher_loop()
                 return
+            K = self._config.steps_per_dispatch
             while not self._stop.is_set():
-                trajs = self._collect()
-                if trajs is None:
+                if K == 1:
+                    trajs = self._collect()
+                    batch = None if trajs is None else stack_trajectories(trajs)
+                else:
+                    batch = self._assemble_superbatch(K)
+                if batch is None:
                     return
-                batch = stack_trajectories(trajs)
-                if not self._push((self._to_device(batch), batch.param_version, None)):
+                if not self._push((self._to_device(batch), batch.param_version, None, None)):
                     return
         except BaseException as e:  # noqa: BLE001 - surfaced via step_once
             self.error = e
@@ -319,21 +423,31 @@ class Learner:
 
         On the CPU, `.to("cpu")` would alias the slot, and a recycled slot
         would overwrite a queued batch: each batch is staged through one
-        owning copy instead, and the slot is released at once."""
+        owning copy instead, and the slot is released at once.
+
+        With `donate_batch` the slot goes with its batch (the queue item's
+        fourth element) and comes back from `step_once` once the step that
+        consumed it has been queued; each pass releases the slots handed
+        back whose events have completed (`_release_consumed`), never
+        waiting for one. On the CPU the batch is the slot itself."""
         ring = self.traj_ring
         cuda = self._device.type == "cuda"
+        donate = self._config.donate_batch
         copy_stream = torch.cuda.Stream(self._device) if cuda else None
         inflight: collections.deque = collections.deque()  # (slot, event)
         keep = self._batch_q.maxsize
         while not self._stop.is_set():
-            # With copies in flight, wake often to hand their slots back.
-            view = ring.pop_ready(timeout=0.01 if inflight else 0.5)
+            # With copies in flight or slots to hand back, wake often.
+            view = ring.pop_ready(timeout=0.01 if inflight or donate else 0.5)
             if view is not None and cuda:
                 with torch.cuda.stream(copy_stream):
                     arrays = self._ring_to_device(view.tensors)
                     event = torch.cuda.Event()
                     event.record(copy_stream)
-                inflight.append((view.slot, event))
+                if not donate:
+                    inflight.append((view.slot, event))
+            elif view is not None and donate:
+                arrays, event = self._ring_to_device(view.tensors), None
             elif view is not None:
                 owned = view.tensors
                 owned = (*(t.clone() for t in owned[:6]), map_state(torch.clone, owned[6]))
@@ -344,8 +458,29 @@ class Learner:
             # queue's depth, wait for the oldest.
             while inflight and (len(inflight) > keep or inflight[0][1].query()):
                 ring.release_after_transfer(*inflight.popleft())
-            if view is not None and not self._push((arrays, view.param_version, event)):
+            self._release_consumed()
+            donated = view.slot if view is not None and donate else None
+            if view is not None and not self._push((arrays, view.param_version, event, donated)):
                 return
+
+    def _hand_back(self, slot: int, consumed: Optional[torch.cuda.Event]) -> None:
+        """A donated slot back to the batcher (learner thread), with the
+        event recorded after the step that consumed it (None: the step has
+        finished)."""
+        with self._consumed_lock:
+            self._consumed.append((slot, consumed))
+
+    def _release_consumed(self) -> None:
+        """Release the handed-back slots whose steps have finished, in
+        order (the steps run in order on one stream); never waits."""
+        done = []
+        with self._consumed_lock:
+            while self._consumed and (
+                self._consumed[0][1] is None or self._consumed[0][1].query()
+            ):
+                done.append(self._consumed.popleft()[0])
+        for slot in done:
+            self.traj_ring.release(slot)
 
     def _ring_to_device(self, tensors: tuple) -> tuple:
         """A slot's tensors as the train step's tuple on the device (the
@@ -451,35 +586,57 @@ class Learner:
             logs["weight_norm"] = global_norm(self._params.values())
         return logs
 
+    def train_dispatch(self, arrays: tuple) -> dict[str, torch.Tensor]:
+        """`steps_per_dispatch` = K SGD steps on a device batch: at K = 1
+        `train_step(arrays)`; else `arrays` is a `[K, ...]` superbatch and
+        step k takes `train_step` on its slice k, back to back with no host
+        sync (JAX's `_train_multi_impl`, a scan over K steps). Returns the
+        last step's device-scalar logs, as the scan does."""
+        K = self._config.steps_per_dispatch
+        if K == 1:
+            return self.train_step(arrays)
+        for k in range(K):
+            logs = self.train_step(superbatch_slice(arrays, k))
+        return logs
+
     def step_once(self, timeout: Optional[float] = None) -> Mapping[str, Any]:
-        """Block for one device batch, take one SGD step, publish params.
+        """Block for one device batch, take one dispatch of
+        `steps_per_dispatch` SGD steps, publish params on the interval.
         Raises queue.Empty on timeout."""
         if self.error is not None:
             raise RuntimeError("learner batcher thread died") from self.error
         t0 = time.monotonic()
         try:
-            arrays, batch_version, copied = self._batch_q.get(timeout=timeout)
+            arrays, batch_version, copied, donated = self._batch_q.get(timeout=timeout)
         finally:
             self._wait_accum += time.monotonic() - t0
         if copied is not None:
             # A ring batch copied on the batcher's side stream: this
             # stream waits for the copies, and the caching allocator keeps
-            # the batch's memory until this stream is done with it.
+            # the batch's memory until this stream is done with it (the
+            # whole [K, ...] tensors, not only the steps' slices).
             stream = torch.cuda.current_stream(self._device)
             stream.wait_event(copied)
             for t in (*arrays[:6], *arrays[6]):
                 t.record_stream(stream)
         self.last_batch_device = arrays[0].device
-        logs = self.train_step(arrays)
+        logs = self.train_dispatch(arrays)
+        if donated is not None:
+            consumed = None
+            if self._device.type == "cuda":
+                consumed = torch.cuda.Event()
+                consumed.record(torch.cuda.current_stream(self._device))
+            self._hand_back(donated, consumed)
         cfg = self._config
-        self.num_frames += cfg.unroll_length * cfg.batch_size
-        self.num_steps += 1
+        K = cfg.steps_per_dispatch
+        self.num_frames += K * cfg.unroll_length * cfg.batch_size
+        self.num_steps += K
         logs["num_frames"] = self.num_frames
         logs["num_steps"] = self.num_steps
         logs["param_lag_frames"] = self.num_frames - batch_version
-        if crossed_interval(self.num_steps, 1, cfg.publish_interval):
+        if crossed_interval(self.num_steps, K, cfg.publish_interval):
             self._publish()
-        if self._logger is not None and self.num_steps % cfg.log_interval == 0:
+        if self._logger is not None and crossed_interval(self.num_steps, K, cfg.log_interval):
             now = time.monotonic()
             if self._last_log_t is not None:
                 elapsed = max(now - self._last_log_t, 1e-9)
@@ -508,20 +665,31 @@ class Learner:
         watchdog: Optional[Callable[[], None]] = None,
         post_step: Sequence[Callable[[int], None]] = (),
     ) -> None:
-        """`max_steps` SGD steps, then stop. Each hook of `post_step` runs
-        after every step with the learner's `num_steps`, on this thread
+        """`max_steps` SGD steps, then stop. With `steps_per_dispatch` = K
+        each dispatch takes K steps, so it runs the largest multiple of K
+        that fits and never overshoots the budget (the lr schedule and the
+        frame budget line up with `total_steps`); a remainder is left
+        unrun, with a warning (JAX's rule). Each hook of `post_step` runs
+        after every dispatch with the learner's `num_steps`, on this thread
         (checkpoint saves, chaos, the caller's own); a hook that raises
         ends the run. `watchdog` runs whenever no batch arrives within a
         second and should raise if the producers are dead."""
         self.start()
+        K = self._config.steps_per_dispatch
+        if max_steps % K:
+            warnings.warn(
+                f"step budget {max_steps} is not a multiple of steps_per_dispatch={K}; "
+                f"the final {max_steps % K} step(s) will not run",
+                stacklevel=2,
+            )
         steps = 0
         try:
-            while steps < max_steps:
+            while steps + K <= max_steps:
                 if stop_event is not None and stop_event.is_set():
                     break
                 try:
                     self.step_once(timeout=1.0)
-                    steps += 1
+                    steps += K
                 except queue.Empty:
                     if watchdog is not None:
                         watchdog()

@@ -16,6 +16,10 @@ learner for `total_steps` updates. Actors come in two modes:
 With `learner_config.traj_ring` the actors write their unrolls straight
 into the learner's batch slots (runtime/traj_ring.py) instead of
 enqueueing trajectories; every actor's env count must divide the batch.
+With `learner_config.steps_per_dispatch` = K the learner takes K steps a
+dispatch: the post-step hooks (checkpoint saves, chaos, `on_learner_step`)
+run once a dispatch with the step count, and a budget that K does not
+divide runs its largest multiple of K, with a warning (`Learner.run`).
 
 Actors run under an `ActorSupervisor` (runtime/supervisor.py): an actor
 that dies with an error is rebuilt after a backoff, within
@@ -162,7 +166,8 @@ def train(
     the plain PyTorch path. In process mode the env factory must be
     picklable (`configs.make_env_factory`'s is). `on_learner_step(n)` is
     called once with the starting (maybe restored) step and after every
-    learner step. Checkpoint, resume and chaos: module docstring."""
+    learner dispatch (every step at K = 1). Checkpoint, resume and chaos:
+    module docstring."""
     if actor_mode not in ("thread", "process"):
         raise ValueError(f"unknown actor_mode {actor_mode!r}")
     if pool_mode not in ("lockstep", "async"):
@@ -250,6 +255,8 @@ def train(
     if on_learner_step is not None:
         post_hooks.append(on_learner_step)
         on_learner_step(learner.num_steps)
+    # Learner.run takes the largest multiple of K of these, so a resumed
+    # run never overshoots total_steps either.
     remaining_steps = max(0, total_steps - learner.num_steps)
 
     if actor_mode == "process":

@@ -17,8 +17,10 @@ batch:
   learner's batcher copies it to the card as it is;
 - slots recycle through a free list, with a generation counter on each slot:
   the batcher returns a slot only after its host-to-device copy has
-  completed (`release_after_transfer`), and a stale block (its slot
-  recycled under a writer that outlived it) fails loudly at commit.
+  completed (`release_after_transfer`), or with the learner's
+  `donate_batch` only after the step that consumed it, and a stale block
+  (its slot recycled under a writer that outlived it) fails loudly at
+  commit.
 
 Backpressure falls out of the free list: with every slot filling, ready
 or in flight, `acquire` blocks, where a full trajectory queue blocked
@@ -29,9 +31,19 @@ pin_memory=True)`, with numpy views for the writers), so the batcher's
 copies are asynchronous DMA on a side stream; on the CPU device they are
 ordinary memory.
 
+Superbatch slots (`superbatch_k = K > 1`, the learner's
+`steps_per_dispatch`): every slot has a leading `[K]` axis (`obs` is
+`[K, T+1, B, ...]`) and holds K*B columns. A writer still acquires a
+plain `[T+1, E, ...]` view: a block never straddles a B boundary (E
+divides B), so it lies inside one of the K sub-batches. A slot completes
+when all K*B columns have committed, and a delivered slot is the K-step
+dispatch's superbatch as it is: one host-to-device copy for K SGD steps.
+With K = 1 the shapes have no leading axis.
+
 Not ported here: replay (`max_reuse > 1`, ROADMAP.md queue 1: Replay)
-and superbatch slots (`superbatch_k > 1`, ROADMAP.md queue 1: The
-learner step's launches); both raise NotImplementedError.
+raises NotImplementedError. When it lands, keep JAX's refusal of
+superbatch slots with replay (a retained slot cannot be re-delivered
+across K sub-batches).
 """
 
 from __future__ import annotations
@@ -101,7 +113,8 @@ class _Slot:
 
 
 class TrajectoryRing:
-    """Preallocated pool of `[T+1, B, ...]` unroll slots shared between
+    """Preallocated pool of `[T+1, B, ...]` unroll slots (`[K, T+1, B,
+    ...]` superbatch slots with `superbatch_k=K`) shared between
     `VectorActor` writers and the `Learner` batcher."""
 
     def __init__(
@@ -122,20 +135,19 @@ class TrajectoryRing:
                 f"max_reuse={max_reuse}: replaying ring slots is not ported yet "
                 "(ROADMAP.md queue 1: Replay)"
             )
-        if superbatch_k != 1:
-            raise NotImplementedError(
-                f"superbatch_k={superbatch_k}: superbatch slots are not ported yet "
-                "(ROADMAP.md queue 1: The learner step's launches)"
-            )
+        if superbatch_k < 1:
+            raise ValueError(f"superbatch_k must be >= 1, got {superbatch_k}")
         if num_slots < 2:
             # One slot can never overlap filling with a transfer in flight.
             raise ValueError(f"need >= 2 slots, got {num_slots}")
         if unroll_length < 1 or batch_size < 1:
             raise ValueError("unroll_length and batch_size must be >= 1")
         obs = np.asarray(example_obs)
-        T, B = unroll_length, batch_size
+        T, B, K = unroll_length, batch_size, int(superbatch_k)
         self.unroll_length = T
         self.batch_size = B
+        self.superbatch_k = K
+        self.total_cols = K * B
         self.num_slots = num_slots
         self.obs_shape = obs.shape
         self.obs_dtype = obs.dtype
@@ -148,17 +160,20 @@ class TrajectoryRing:
             return torch.empty(shape, dtype=dtype, pin_memory=pin_memory)
 
         # Per-env agent-state template (leaves [1, ...], as each
-        # Trajectory carries); slot leaves hold [B, ...].
+        # Trajectory carries); slot leaves hold [B, ...]. Superbatch slots
+        # carry a leading [K] axis on every leaf.
+        lead = () if K == 1 else (K,)
+
         def slot_tensors() -> Trajectory:
             return Trajectory(
-                obs=empty((T + 1, B) + obs.shape, obs_dtype),
-                first=empty((T + 1, B), torch.bool),
-                actions=empty((T, B), torch.int32),
-                behaviour_logits=empty((T, B, self.num_actions), torch.float32),
-                rewards=empty((T, B), torch.float32),
-                cont=empty((T, B), torch.float32),
+                obs=empty(lead + (T + 1, B) + obs.shape, obs_dtype),
+                first=empty(lead + (T + 1, B), torch.bool),
+                actions=empty(lead + (T, B), torch.int32),
+                behaviour_logits=empty(lead + (T, B, self.num_actions), torch.float32),
+                rewards=empty(lead + (T, B), torch.float32),
+                cont=empty(lead + (T, B), torch.float32),
                 agent_state=map_state(
-                    lambda x: empty((B * x.shape[0],) + tuple(x.shape[1:]), x.dtype),
+                    lambda x: empty(lead + (B * x.shape[0],) + tuple(x.shape[1:]), x.dtype),
                     agent_state_example,
                 ),
             )
@@ -176,7 +191,8 @@ class TrajectoryRing:
         """Reserve `num_cols` columns of the filling slot; blocks while
         every slot is busy (the ring's backpressure). Raises QueueClosed
         after `close()`. `num_cols` must divide `batch_size`, so a block
-        never straddles two slots."""
+        never straddles two slots, nor two sub-batches of a superbatch
+        slot."""
         if num_cols < 1 or self.batch_size % num_cols:
             raise ValueError(
                 f"block of {num_cols} columns must divide batch_size "
@@ -193,25 +209,37 @@ class TrajectoryRing:
                     slot = self._slots[s]
                     c0 = slot.next_col
                     slot.next_col += num_cols
-                    if slot.next_col >= self.batch_size:
+                    if slot.next_col >= self.total_cols:
                         self._filling = None  # fully handed out
                     return self._block(s, slice(c0, c0 + num_cols))
                 self._cond.wait(timeout=0.5)
 
     def _block(self, s: int, cols: slice) -> RingBlock:
+        """The writer's views of the slot's global columns `cols`: with
+        superbatch slots, columns k*B ... (k+1)*B - 1 are sub-batch k's
+        local columns 0 ... B - 1 (JAX's mapping)."""
         slot = self._slots[s]
         buf = slot.arrays
+        if self.superbatch_k > 1:
+            k, B = cols.start // self.batch_size, self.batch_size
+            buf = Trajectory(
+                *(x[k] for x in buf[:6]),
+                agent_state=map_state(lambda x: x[k], buf.agent_state),
+            )
+            local = slice(cols.start - k * B, cols.stop - k * B)
+        else:
+            local = cols
         return RingBlock(
             slot=s,
             cols=cols,
             gen=slot.gen,
-            obs=buf.obs[:, cols],
-            first=buf.first[:, cols],
-            actions=buf.actions[:, cols],
-            behaviour_logits=buf.behaviour_logits[:, cols],
-            rewards=buf.rewards[:, cols],
-            cont=buf.cont[:, cols],
-            agent_state=map_state(lambda x: x[cols], buf.agent_state),
+            obs=buf.obs[:, local],
+            first=buf.first[:, local],
+            actions=buf.actions[:, local],
+            behaviour_logits=buf.behaviour_logits[:, local],
+            rewards=buf.rewards[:, local],
+            cont=buf.cont[:, local],
+            agent_state=map_state(lambda x: x[local], buf.agent_state),
         )
 
     def commit(self, block: RingBlock, param_version: int) -> None:
@@ -245,7 +273,7 @@ class TrajectoryRing:
 
     def _maybe_complete_locked(self, s: int) -> None:
         slot = self._slots[s]
-        if slot.committed < self.batch_size:
+        if slot.committed < self.total_cols:
             return
         if slot.aborted:
             self._recycle_locked(s)
@@ -349,17 +377,19 @@ class TrajectoryRing:
         obs = np.asarray(example_obs)
         buf = self._slots[0].arrays
         T, B = self.unroll_length, self.batch_size
+        lead = () if self.superbatch_k == 1 else (self.superbatch_k,)
         problems: List[str] = []
-        if buf.obs.shape != (T + 1, B) + obs.shape:
+        if buf.obs.shape != lead + (T + 1, B) + obs.shape:
             problems.append(
-                f"obs slot shape {buf.obs.shape} != expected {(T + 1, B) + obs.shape}"
+                f"obs slot shape {buf.obs.shape} != expected "
+                f"{lead + (T + 1, B) + obs.shape}"
             )
         if buf.obs.dtype != obs.dtype:
             problems.append(f"obs slot dtype {buf.obs.dtype} != env {obs.dtype}")
-        if buf.behaviour_logits.shape != (T, B, num_actions):
+        if buf.behaviour_logits.shape != lead + (T, B, num_actions):
             problems.append(
                 f"logits slot shape {buf.behaviour_logits.shape} != expected "
-                f"{(T, B, num_actions)}"
+                f"{lead + (T, B, num_actions)}"
             )
         for name, arr, dtype in (
             ("first", buf.first, np.bool_),
