@@ -83,8 +83,9 @@ non-zero (no phase's failure is caught):
 9. pong: `loop.train` with the PONG preset at full width (84x84x4 uint8,
    Nature-CNN, bf16 torso, T=20, B=32) on the card, three runs, each
    with every kernel's launch count zeroed just before and read just
-   after, its loop steps/s and env frames/s from the 5th logged step, a
-   profiled short run for the device's idle share, V-trace launches a
+   after, its loop steps/s and env frames/s from the first logged
+   learner step from the 5th on, a profiled short run (6 learner steps)
+   for the device's idle share, V-trace launches a
    step (>= 1) and `os.cpu_count()`:
    - "pong": the preset as configured, 32 env worker processes in two
      pools of 16, lockstep, each pool driven by a batched-inference
@@ -117,7 +118,8 @@ non-zero (no phase's failure is caught):
    the dispatch alone (events ms, device-busy ms, kernels), one step
    alone, the dispatch's peak device memory, the pinned slots' bytes and
    allocation seconds, and the loop's env frames/s and final param lag
-   beside pong_ring's from the same call.
+   beside pong_ring's from the same call. No profiled run: the smoke
+   keeps its length.
 11. resume: the PONG preset as configured (32 worker processes, queue
    feed) through `loop.train` with checkpoints. Run 1: an
    `AsyncCheckpointer` (interval 4, keep 3) and a fault plan (one env
@@ -171,7 +173,8 @@ non-zero (no phase's failure is caught):
    learner step; the cell (B = 32) and the block (N = 672, its three
    shapes) held to their plain versions on the run's own first learner
    inputs, at the gates of phases 4 and 5. No profiled run (≈ 45 s on
-   the card): the smoke stays near half its time limit.
+   the card): the smoke keeps its length. Its env frames/s spans three
+   dispatches (steps 6 to 12) and is recorded, not compared.
 15. pong_transformer: the same with the PONG_TRANSFORMER preset
    (Nature-CNN bf16 torso, transformer core d_model 256, 2 layers, 4
    heads, window 128) for 12 learner steps with the attention kernels
@@ -231,7 +234,9 @@ PONG_THREAD_STEPS = 12
 # Ring batches whose device copy is held to a host copy of its slot.
 RING_PROBE_BATCHES = 4
 BREAKOUT_STEPS = 12
-PROFILED_STEPS = 8
+# The profiled short run's learner steps (8 before the superbatch phases
+# came; cut so that the smoke keeps its length).
+PROFILED_STEPS = 6
 # The superbatch phases: Pong with --superbatch-k 4 for 20 dispatches,
 # Breakout fused at 2 steps a dispatch for 6.
 SUPERBATCH_K = 4
@@ -1440,8 +1445,10 @@ def drive(name, cfg, steps, device, standalone=True, at_step5=None, after=None,
     if moved != len(before):
         raise AssertionError(f"{name}: only {moved}/{len(before)} params moved")
 
-    # Steady window: from the 5th logged step to the last.
-    (s0, t_0, _), (s1, t_1, _) = log_times[4], log_times[-1]
+    # Steady window: from the first logged learner step from the 5th on
+    # (the 5th at one step a dispatch) to the last.
+    first = next(i for i, (n, _, _) in enumerate(log_times) if n >= 5)
+    (s0, t_0, _), (s1, t_1, _) = log_times[first], log_times[-1]
     steps_per_s = (s1 - s0) / (t_1 - t_0)
     T, B = cfg.unroll_length, cfg.batch_size
     factory = configs.make_env_factory(cfg, fake=True)
@@ -1967,7 +1974,7 @@ def phase_pong_superbatch(device, smi):
     vtrace_key = CaptureInputs(vtrace_cuda, "vtrace_cuda", lambda a, kw: tuple(kw["log_rhos"].shape))
     with DonationProbe() as donation, vtrace_key as captured:
         launches = drive("pong_superbatch", cfg, steps, device, standalone=False,
-                         at_step5=processes_mid_run, after=after)
+                         at_step5=processes_mid_run, after=after, profiled=False)
     released = donation.check()
     if launches["vtrace"] != steps:
         raise AssertionError(f"pong_superbatch: {launches['vtrace']} vtrace launches, want "

@@ -422,6 +422,48 @@ def test_donate_batch_is_bit_identical_and_releases_after_the_step(dispatches, m
         assert torch.equal(l0[key], l1[key]), key
 
 
+
+def test_donated_slot_goes_back_when_the_step_raises(monkeypatch):
+    """A dispatch that raises still hands its donated slot back: the
+    batcher releases it, and the next dispatch trains on a fresh slot."""
+    K, B, E = 2, 4, 2
+    released = []
+    release = TrajectoryRing.release
+    dispatch = Learner.train_dispatch
+    failed = []
+
+    def failing_once(self, arrays):
+        if not failed:
+            failed.append(arrays[0].data_ptr())
+            raise RuntimeError("injected step failure")
+        return dispatch(self, arrays)
+
+    def recording_release(self, s):
+        released.append(self._slots[s].tensors.obs.data_ptr())
+        return release(self, s)
+
+    monkeypatch.setattr(Learner, "train_dispatch", failing_once)
+    monkeypatch.setattr(TrajectoryRing, "release", recording_release)
+    learner, actor = _ring_learner(True, B=B, K=K, E=E)
+    learner.start()
+    try:
+        for _ in range(K * B // E):
+            actor.unroll_and_push()
+        with pytest.raises(RuntimeError, match="injected step failure"):
+            learner.step_once(timeout=60)
+        for _ in range(500):
+            if failed[0] in released:
+                break
+            threading.Event().wait(0.01)
+        assert released == failed
+        for _ in range(K * B // E):
+            actor.unroll_and_push()
+        logs = learner.step_once(timeout=60)
+    finally:
+        learner.stop()
+        learner.join()
+    assert learner.num_steps == K and torch.isfinite(logs["total_loss"])
+
 def test_scaled_base_lr_scales_by_the_effective_batch_as_jax():
     for K in (1, 2, 4):
         ours = dataclasses.replace(configs.PONG, lr_scale_ref_batch=16, steps_per_dispatch=K)

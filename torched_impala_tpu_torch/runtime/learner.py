@@ -458,7 +458,8 @@ class Learner:
             # queue's depth, wait for the oldest.
             while inflight and (len(inflight) > keep or inflight[0][1].query()):
                 ring.release_after_transfer(*inflight.popleft())
-            self._release_consumed()
+            if donate:
+                self._release_consumed()
             donated = view.slot if view is not None and donate else None
             if view is not None and not self._push((arrays, view.param_version, event, donated)):
                 return
@@ -620,13 +621,17 @@ class Learner:
             for t in (*arrays[:6], *arrays[6]):
                 t.record_stream(stream)
         self.last_batch_device = arrays[0].device
-        logs = self.train_dispatch(arrays)
-        if donated is not None:
-            consumed = None
-            if self._device.type == "cuda":
-                consumed = torch.cuda.Event()
-                consumed.record(torch.cuda.current_stream(self._device))
-            self._hand_back(donated, consumed)
+        try:
+            logs = self.train_dispatch(arrays)
+        finally:
+            # A donated slot goes back even when the step raised; on the
+            # card only after what the step enqueued has run.
+            if donated is not None:
+                consumed = None
+                if self._device.type == "cuda":
+                    consumed = torch.cuda.Event()
+                    consumed.record(torch.cuda.current_stream(self._device))
+                self._hand_back(donated, consumed)
         cfg = self._config
         K = cfg.steps_per_dispatch
         self.num_frames += K * cfg.unroll_length * cfg.batch_size
