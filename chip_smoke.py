@@ -30,7 +30,8 @@ non-zero (no phase's failure is caught):
    instructions (`cuobjdump -sass`; the phase fails on none); the
    residual-block kernels against their plain version at the three
    Breakout block shapes with N = 672 (the learner's 21 x 32 images)
-   and N = 8 (one actor) in bf16, and at C = 24, C = 1 and C = 72
+   and N = 8 (one actor) in bf16, at procgen's (N = 1344 at 32x32x16,
+   16x16x32 and 8x8x32, and N = 16 and 32 there), and at C = 24, C = 1 and C = 72
    (zero-padded channels), one bf16 rounding apart (rtol = atol = 2^-7, 99% of
    elements equal), and ragged f32 shapes (1e-5); gradients through the
    autograd.Function (rtol 1e-4, atol 1e-5 x the gradient's largest
@@ -42,7 +43,8 @@ non-zero (no phase's failure is caught):
    two launches bit-identical; its time, bound and the cuDNN pair's at
    (8, 42, 42, 48) in f32.
 6. fused_loss: the fused loss's forward kernel against its plain version
-   at (T, B, A) = (20, 32, 6), (100, 32, 15), (1, 1, 2), (7, 130, 4) x
+   at (T, B, A) = (20, 32, 6), (100, 32, 15), (1, 1, 2), (7, 130, 4),
+   (20, 64, 15) (procgen's: one full cluster) x
    the three threshold sets x lambda, with a mask with zeros (the five
    sums rtol 1e-5; vs, the advantages, lse and the entropy <= 1e-5
    absolute), its backward kernel against its plain version (rtol 1e-5,
@@ -181,6 +183,20 @@ non-zero (no phase's failure is caught):
    forced and `fused_epilogue=True`; it must launch the attention
    forward and backward >= 2 times a learner step each, the fused loss's
    forward and backward >= once each and V-trace never.
+16. procgen: the PROCGEN preset (IMPALA deep ResNet without a core,
+   64x64x3 uint8, 15 actions, bf16 torso, T=20, B=64, the async
+   ready-set pool at `pool_ready_fraction` 0.5) as `run.py --config
+   procgen --fake-envs --num-actors 64 --fused-conv` configures it, its
+   `dp_devices=-1` resolved to one device: 64 env worker processes of
+   one env in two pools of 32 (waves of 16, or every ready worker) in
+   place of 512, through `loop.train` for 12 learner steps, as pong (the
+   workers' checks included), with the train step alone and a profiled
+   run of 6 steps: V-trace >= 1 launch a step and held to its plain
+   version on the run's own [20, 64] input (1e-5); the residual block
+   >= 6 launches a learner step, and held to its plain version on the
+   run's own inputs at every shape it was launched at (the learner's N
+   = 1344 at 32x32x16, 16x16x32 and 8x8x32, and each N the actors' waves
+   gave it), at the bf16 gate of phase 5.
 
 Then, whether the phases passed or failed, every process the run started
 is stopped: the pools' forkserver and resource tracker (they outlive the
@@ -217,9 +233,9 @@ PEAK_TF32_SPLIT_OPS_PER_S = 495e12 / 3
 PEAK_BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 # V-trace (T, B): the Pong shape first (timed), then longer unrolls, wider
 # batches, one step over a 32-step chunk with a ragged second tile, ragged
-# ones, and breakout_accum's microbatch (B = 32 / 2).
+# ones, breakout_accum's microbatch (B = 32 / 2) and the procgen learner's.
 KERNEL_SHAPES = [(20, 32), (100, 32), (20, 256), (1, 1), (7, 130), (33, 33), (1000, 32),
-                 (20, 16)]
+                 (20, 16), (20, 64)]
 # Unroll lengths of the V-trace kernel's device-time sweep at B = 32: the
 # slope is what each step of T costs.
 VTRACE_SWEEP_T = (20, 100, 1000)
@@ -258,6 +274,12 @@ BLOCK_SHAPES = BLOCK_LEARNER_SHAPES + [(8, 42, 42, 16), (8, 21, 21, 32), (8, 11,
 # breakout_accum's three block shapes (a microbatch of 21 x 16 images),
 # held to the plain block but not timed.
 BLOCK_ACCUM_SHAPES = [(336, 42, 42, 16), (336, 21, 21, 32), (336, 11, 11, 32)]
+# The procgen learner's three block shapes (21 x 64 images of 64x64x3),
+# then two of its async actors' wave sizes (16 and 32 workers of one env),
+# held to the plain block but not timed.
+BLOCK_PROCGEN_LEARNER_SHAPES = [(1344, 32, 32, 16), (1344, 16, 16, 32), (1344, 8, 8, 32)]
+BLOCK_PROCGEN_SHAPES = BLOCK_PROCGEN_LEARNER_SHAPES + [
+    (n, h, w, c) for n in (16, 32) for _, h, w, c in BLOCK_PROCGEN_LEARNER_SHAPES]
 # Channel counts the bf16 kernel zero-pads (to 32, 16 and 80; at 80 each
 # conv's kernel is staged before that conv).
 BLOCK_BF16_PADDED_SHAPES = [(3, 13, 7, 24), (2, 13, 21, 1), (2, 9, 9, 72)]
@@ -271,7 +293,8 @@ BLOCK_GENERAL_CASES = [
     ((2, 5, 42, 48), "float32"), ((2, 21, 21, 64), "float32"), ((8, 42, 42, 48), "float32"),
 ]
 BF16_ULP = 2.0**-7
-FUSED_SHAPES = [(20, 32, 6), (100, 32, 15), (1, 1, 2), (7, 130, 4)]  # T, B, A
+# T, B, A; (20, 64, 15) is procgen's: one full cluster, 15 actions.
+FUSED_SHAPES = [(20, 32, 6), (100, 32, 15), (1, 1, 2), (7, 130, 4), (20, 64, 15)]
 # (B, T, H, dh, W): the learner's (T + 1 = 21 queries over S = W + 21),
 # a long unroll, and ragged ones.
 ATTN_LEARNER = (32, 21, 4, 64, 128)
@@ -288,6 +311,10 @@ ATTN_F32_ATOL = 2e-5
 ATTN_WIDE = [(2, 21, 2, dh, 19) for dh in (257, 320, 512)]
 ATTN_WIDE_TIMED = (8, 21, 4, 512, 128)
 PONG_TRANSFORMER_STEPS = 12
+# The procgen phase: the preset's async pool cut to 64 worker processes of
+# one env (two pools of 32, waves of 16 or every ready worker).
+PROCGEN_STEPS = 12
+PROCGEN_WORKERS = 64
 # Kernels that share a source file with another.
 SOURCES = {
     "fused_loss_fwd": "fused_loss", "fused_loss_bwd": "fused_loss",
@@ -652,7 +679,7 @@ def phase_resblock(device):
         return x_nchw + F.conv2d(F.relu(out), w2, b2, padding=1)
 
     per_shape, equal_share, plans = {}, {}, {}
-    for shape in BLOCK_SHAPES + BLOCK_ACCUM_SHAPES + BLOCK_BF16_PADDED_SHAPES:
+    for shape in BLOCK_SHAPES + BLOCK_ACCUM_SHAPES + BLOCK_PROCGEN_SHAPES + BLOCK_BF16_PADDED_SHAPES:
         args = inputs(*shape, torch.bfloat16, seed=shape[1])
         out = conv_block_cuda.resblock_cuda(*args)
         ref = conv_block.block_reference(*args)
@@ -1351,7 +1378,7 @@ def fixed_batch(cfg, device, state, seed=5):
     rng = np.random.default_rng(seed)
     T, B, A = cfg.unroll_length, cfg.batch_size, cfg.num_actions
     return (
-        torch.from_numpy(rng.integers(0, 256, size=(T + 1, B, 84, 84, 4), dtype=np.uint8)).to(device),
+        torch.from_numpy(rng.integers(0, 256, size=(T + 1, B, *cfg.obs_shape), dtype=np.uint8)).to(device),
         torch.zeros(T + 1, B, dtype=torch.bool, device=device),
         torch.from_numpy(rng.integers(0, A, size=(T, B))).to(device),
         torch.from_numpy(rng.normal(size=(T, B, A)).astype(np.float32)).to(device),
@@ -1625,13 +1652,13 @@ def processes_mid_run() -> dict:
     }
 
 
-def check_workers(name, result, seen) -> dict:
-    """The process run's workers: alive and CUDA-free at the 5th step (not
-    in nvidia-smi's compute apps, no CUDA context, where this process
-    has one), all exited after the pools closed, and no shared-memory
-    segment of theirs left in /dev/shm."""
+def check_workers(name, result, seen, count=32) -> dict:
+    """The process run's `count` workers: alive and CUDA-free at the 5th
+    step (not in nvidia-smi's compute apps, no CUDA context, where this
+    process has one), all exited after the pools closed, and no
+    shared-memory segment of theirs left in /dev/shm."""
     workers = set(result.pool_pids)
-    if len(workers) != 32 or not workers <= set(seen["descendants"]):
+    if len(workers) != count or not workers <= set(seen["descendants"]):
         raise AssertionError(f"{name}: workers {sorted(workers)} not all seen mid-run: {seen}")
     if not seen["parent_has_cuda_context"]:
         raise AssertionError(f"{name}: this process's CUDA context is not visible in /proc")
@@ -2378,6 +2405,71 @@ def phase_breakout_superbatch(device):
     return launches
 
 
+def phase_procgen(device, smi):
+    """The PROCGEN preset as `run.py --config procgen --fake-envs
+    --num-actors 64 --fused-conv` configures it (module docstring, phase
+    16): V-trace at [20, 64] and the bf16 block at the learner's N = 1344
+    and the async waves' N, each held to its plain version on the run's
+    own inputs."""
+    import torch
+
+    from torched_impala_tpu_torch import configs, run
+    from torched_impala_tpu_torch.ops import conv_block, conv_block_cuda, vtrace_cuda
+    from torched_impala_tpu_torch.ops.vtrace import vtrace_reference
+
+    steps = PROCGEN_STEPS
+    cfg = run.build_config(run.parse_args(
+        ["--config", "procgen", "--fake-envs", "--total-steps", str(steps),
+         "--num-actors", str(PROCGEN_WORKERS), "--fused-conv"]))
+    assert (cfg.actor_mode, cfg.pool_mode, cfg.pool_ready_fraction, cfg.num_actors,
+            cfg.envs_per_actor) == ("process", "async", 0.5, PROCGEN_WORKERS, 1)
+    assert (cfg.obs_shape, cfg.num_actions, cfg.unroll_length, cfg.batch_size, cfg.use_lstm,
+            cfg.fused_conv, cfg.dp_devices) == ((64, 64, 3), 15, 20, 64, False, True, -1)
+    dp = configs.resolve_dp_devices(cfg.dp_devices, device)
+    T, B = cfg.unroll_length, cfg.batch_size
+    learner_n = (T + 1) * B
+    vtraces = CaptureInputs(vtrace_cuda, "vtrace_cuda", lambda a, kw: tuple(kw["log_rhos"].shape))
+    blocks = CaptureInputs(conv_block_cuda, "resblock_cuda", lambda a, kw: tuple(a[0].shape))
+    with vtraces, blocks:
+        launches = drive(
+            "procgen", cfg, steps, device, at_step5=processes_mid_run,
+            after=lambda r, seen: check_workers("procgen", r, seen, count=PROCGEN_WORKERS),
+        )
+    if launches["vtrace"] < steps:
+        raise AssertionError(f"procgen: {launches['vtrace']} vtrace launches < {steps} steps")
+    if launches["resblock"] < 6 * steps:
+        raise AssertionError(f"procgen: {launches['resblock']} resblock launches < 6 a step")
+    args, kwargs = vtraces.captured[(T, B)]
+    out, ref = vtrace_cuda.vtrace_cuda(**kwargs), vtrace_reference(**kwargs)
+    vtrace_err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
+    if not vtrace_err <= 1e-5:
+        raise AssertionError(f"procgen: vtrace vs plain {vtrace_err}")
+    errors, equal = {}, {}
+    for shape, (args, _) in sorted(blocks.captured.items()):
+        out, ref = conv_block_cuda.resblock_cuda(*args), conv_block.block_reference(*args)
+        key = "x".join(map(str, shape))
+        torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_ULP, atol=BF16_ULP)
+        errors[key] = float((out.float() - ref.float()).abs().max())
+        equal[key] = float((out == ref).float().mean())
+    learner_keys = ["x".join(map(str, s)) for s in BLOCK_PROCGEN_LEARNER_SHAPES]
+    actor_ns = sorted({s[0] for s in blocks.captured if s[0] != learner_n})
+    if not set(learner_keys) <= set(errors) or not actor_ns or min(equal.values()) < 0.99:
+        raise AssertionError(f"procgen: blocks vs plain {errors}, equal {equal}")
+    emit({
+        "phase": "procgen_checks",
+        "card": smi,
+        "dp_devices_resolved": dp,
+        "launches_per_learner_step": {k: launches[k] / steps for k in ("vtrace", "resblock")},
+        "vtrace_max_abs_err_on_the_runs_input": vtrace_err,
+        "resblock_learner_max_abs_err": {k: errors[k] for k in learner_keys},
+        "resblock_learner_equal_share": {k: equal[k] for k in learner_keys},
+        "resblock_actor_block_ns": actor_ns,
+        "resblock_actor_max_abs_err": max(v for k, v in errors.items() if k not in learner_keys),
+        "resblock_actor_min_equal_share": min(v for k, v in equal.items() if k not in learner_keys),
+    })
+    return launches
+
+
 def phase_pong_transformer(device):
     from torched_impala_tpu_torch import configs
 
@@ -2895,6 +2987,7 @@ def run_phases():
     launches["resblock"] = phase_breakout(device, fused=True)["resblock"]
     phase_breakout_accum(device, smi)
     phase_breakout_superbatch(device)
+    phase_procgen(device, smi)
     transformer_launches = phase_pong_transformer(device)
     for name in ("fused_loss_fwd", "fused_loss_bwd", "attention_fwd", "attention_bwd"):
         launches[name] = transformer_launches[name]

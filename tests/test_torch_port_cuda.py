@@ -96,7 +96,7 @@ def _inputs(T, B, seed, device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("clips", sorted(THRESHOLDS))
 @pytest.mark.parametrize(
-    "T,B", [(1, 1), (5, 7), (20, 16), (20, 32), (20, 130), (100, 32), (20, 256)]
+    "T,B", [(1, 1), (5, 7), (20, 16), (20, 32), (20, 64), (20, 130), (100, 32), (20, 256)]
 )
 def test_vtrace_kernel_matches_reference(cuda, T, B, clips):
     from torched_impala_tpu_torch.ops import vtrace_cuda
@@ -182,9 +182,13 @@ LSTM_SHAPES = [(32, 256, 256), (8, 256, 256), (16, 256, 256), (1, 7, 7), (33, 10
 # two row tiles with K = 768 over four stages.
 LSTM_EDGE_SHAPES = [(1, 1, 1), (2, 3, 300), (64, 512, 256)]
 # The learner's three Breakout block shapes, a microbatch's (G = 2), an
-# actor's.
+# actor's; then procgen's learner shapes (21 x 64 images of 64x64x3) and
+# two of its async actors' wave sizes.
+PROCGEN_BLOCK_SHAPES = [(1344, 32, 32, 16), (1344, 16, 16, 32), (1344, 8, 8, 32)]
 BLOCK_SHAPES = [(672, 42, 42, 16), (672, 21, 21, 32), (672, 11, 11, 32),
-                (336, 42, 42, 16), (336, 21, 21, 32), (336, 11, 11, 32), (8, 42, 42, 16)]
+                (336, 42, 42, 16), (336, 21, 21, 32), (336, 11, 11, 32), (8, 42, 42, 16),
+                *PROCGEN_BLOCK_SHAPES,
+                *((n, h, w, c) for n in (16, 32) for _, h, w, c in PROCGEN_BLOCK_SHAPES)]
 BF16_ULP = 2.0**-7
 
 
@@ -526,9 +530,10 @@ def test_new_wrappers_refuse_bad_inputs_on_cuda(cuda):
 
 
 FUSED_SHAPES = [(20, 32, 6), (100, 32, 15), (1, 1, 2), (7, 130, 4)]
-# The kernels' own tests add 18 and 100 actions, and a batch that the
-# forward splits over 16 clusters (B = 70 and 130 take 2 and 3).
-FUSED_KERNEL_SHAPES = FUSED_SHAPES + [(20, 32, 18), (3, 70, 100), (20, 1024, 18)]
+# The kernels' own tests add 18 and 100 actions, a batch that the forward
+# splits over 16 clusters (B = 70 and 130 take 2 and 3), and procgen's
+# learner shape: B = 64, the widest batch of one cluster, with 15 actions.
+FUSED_KERNEL_SHAPES = FUSED_SHAPES + [(20, 32, 18), (3, 70, 100), (20, 1024, 18), (20, 64, 15)]
 ATTN_SHAPES = [(32, 21, 4, 64, 128), (2, 300, 4, 64, 128), (3, 1, 2, 16, 0), (5, 40, 3, 32, 19)]
 
 

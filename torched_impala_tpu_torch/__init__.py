@@ -3,9 +3,11 @@
 The JAX package `torched_impala_tpu` is the reference; this package grows
 beside it slice by slice (ROADMAP.md) and never imports it, nor JAX.
 It trains the Pong preset (Nature-CNN, bf16 torso), the Breakout preset
-(IMPALA deep ResNet, bf16 torso, LSTM core with episode resets) and the
+(IMPALA deep ResNet, bf16 torso, LSTM core with episode resets), the
 pong_transformer preset (Nature-CNN bf16 torso, transformer core with a
-sliding-window KV cache) with thread actors and a learner on the card.
+sliding-window KV cache) and the PROCGEN preset (IMPALA deep ResNet
+without a core on 64x64x3 pixels, async worker pool) with thread or
+process actors and a learner on one card.
 Every TPU kernel of the JAX package runs as a hand-written CUDA kernel
 (`csrc/`): the V-trace recursion (`ops/vtrace_cuda.py`), the fused
 V-trace loss (`ops/fused_loss_cuda.py`, with `--fused-epilogue`), the

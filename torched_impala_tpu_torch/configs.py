@@ -35,6 +35,8 @@ class ExperimentConfig:
     obs_shape: tuple = ()
     obs_dtype: str = "float32"
     num_actions: int = 2
+    # > 1: a multi-task (PopArt) preset; not ported (__post_init__ raises).
+    num_tasks: int = 1
     model: str = "mlp"  # mlp | shallow_cnn | deep_resnet
     use_lstm: bool = False  # LSTM(lstm_size) core between torso and heads
     lstm_size: int = 256
@@ -109,6 +111,18 @@ class ExperimentConfig:
     checkpoint_interval: int = 1000
     checkpoint_keep: int = 3
     checkpoint_seconds: float = 0.0
+    # Devices the learner batch is sharded over: 0 = one device, -1 = every
+    # visible device, N = N devices; `resolve_dp_devices` refuses more
+    # than one.
+    dp_devices: int = 0
+
+    def __post_init__(self) -> None:
+        if self.num_tasks > 1:
+            raise NotImplementedError(
+                f"num_tasks={self.num_tasks}: multi-task presets (PopArt, task "
+                "ids through actors, ring and learner) are not ported yet "
+                "(ROADMAP.md queue 1: DMLab-30)"
+            )
 
     @property
     def frames_per_step(self) -> int:
@@ -181,7 +195,47 @@ PONG_TRANSFORMER = ExperimentConfig(
     total_env_frames=200_000_000,
 )
 
-PRESETS = {c.name: c for c in (CARTPOLE, PONG, BREAKOUT, PONG_TRANSFORMER)}
+# Procgen (coinrun) shapes on the deep ResNet without a core (JAX
+# configs.py:773-792): the largest fleet, on the async ready-set pool.
+PROCGEN = ExperimentConfig(
+    name="procgen",
+    obs_shape=(64, 64, 3),
+    obs_dtype="uint8",
+    num_actions=15,
+    model="deep_resnet",
+    compute_dtype="bfloat16",
+    actor_mode="process",
+    pool_mode="async",
+    num_actors=512,
+    unroll_length=20,
+    batch_size=64,
+    total_env_frames=200_000_000,
+    dp_devices=-1,
+)
+
+PRESETS = {c.name: c for c in (CARTPOLE, PONG, BREAKOUT, PONG_TRANSFORMER, PROCGEN)}
+
+
+def resolve_dp_devices(dp_devices: int, device: torch.device) -> int:
+    """The learner's device count for `dp_devices` (JAX run.py's rule): 0
+    is one device, -1 every visible one of `device`'s type (one on the
+    CPU), N is N. Raises for more than one: a run never trains on one
+    device when it was asked for several."""
+    if dp_devices == 0:
+        count = 1
+    elif dp_devices == -1:
+        count = torch.cuda.device_count() if device.type == "cuda" else 1
+    elif dp_devices > 0:
+        count = dp_devices
+    else:
+        raise ValueError(f"dp_devices must be -1, 0 or a device count, got {dp_devices}")
+    if count > 1:
+        raise NotImplementedError(
+            f"dp_devices={dp_devices} asks for {count} devices: data-parallel "
+            "learners are not ported yet (ROADMAP.md queue 1: DP and "
+            "multi-process training)"
+        )
+    return count
 
 # 'auto' attention crossover: the learner's unroll takes the CUDA kernels
 # when its score matrix (T+1) x (W+T+1) reaches this many elements.
@@ -323,22 +377,28 @@ def make_optimizer(cfg: ExperimentConfig) -> RMSProp:
 
 @dataclasses.dataclass(frozen=True)
 class _EnvFactory:
-    """(seed, env_index=None) -> env for one preset (fake envs only)."""
+    """Picklable (seed, env_index=None) -> env for one preset (fake envs
+    only), a module-level class so the process pool can ship it to its
+    workers. Each env's `task_id` is `env_index % num_tasks` (the seed
+    when no index is given), as JAX's factory assigns it."""
 
     cfg: ExperimentConfig
+
+    def _task_of(self, seed: int, env_index) -> int:
+        idx = env_index if env_index is not None else seed
+        return idx % max(1, self.cfg.num_tasks)
 
     def __call__(self, seed: int, env_index: Optional[int] = None):
         from torched_impala_tpu_torch.envs.fake import FakeAtariEnv, FakeDiscreteEnv
 
         cfg = self.cfg
+        task = self._task_of(seed, env_index)
         if cfg.obs_dtype == "uint8":
-            if tuple(cfg.obs_shape) != (84, 84, 4):
-                raise NotImplementedError(
-                    f"fake pixel envs are 84x84x4 only, got {cfg.obs_shape}"
-                )
-            return FakeAtariEnv(num_actions=cfg.num_actions, seed=seed)
+            return FakeAtariEnv(
+                num_actions=cfg.num_actions, seed=seed, obs_shape=cfg.obs_shape, task_id=task
+            )
         return FakeDiscreteEnv(
-            obs_shape=cfg.obs_shape, num_actions=cfg.num_actions, seed=seed
+            obs_shape=cfg.obs_shape, num_actions=cfg.num_actions, task_id=task, seed=seed
         )
 
 

@@ -7,6 +7,8 @@ They give the observation and action contracts of the real emulators
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 
 
@@ -47,13 +49,27 @@ class ScriptedEnv:
 
 
 class FakeAtariEnv:
-    """84x84x4 uint8 random-pixel env with fixed-length episodes — stands in
-    for ALE in throughput runs and pixel-pipeline tests."""
+    """Random-pixel uint8 env with fixed-length episodes, stands in for ALE
+    in throughput runs and pixel-pipeline tests: 84x84x4 frames, or any
+    `obs_shape` (64x64x3 Procgen, 72x96x3 DMLab). Every shape draws from
+    one generator in the same order, so its pixels, rewards and episode
+    ends are those of the JAX factory's fakes for the same seed (its
+    `FakeAtariEnv`, or `_ShapedPixels` off 84x84x4). `task_id` is the
+    task the env factory assigned."""
 
-    def __init__(self, episode_len: int = 1000, num_actions: int = 6, seed=0):
+    def __init__(
+        self,
+        episode_len: int = 1000,
+        num_actions: int = 6,
+        seed=0,
+        obs_shape=(84, 84, 4),
+        task_id: int = 0,
+    ):
         self._rng = np.random.default_rng(seed)
         self._episode_len = episode_len
         self._num_actions = num_actions
+        self._obs_shape = tuple(obs_shape)
+        self.task_id = task_id
         self._t = 0
 
     @property
@@ -61,7 +77,7 @@ class FakeAtariEnv:
         return self._num_actions
 
     def _obs(self) -> np.ndarray:
-        return self._rng.integers(0, 256, size=(84, 84, 4), dtype=np.uint8)
+        return self._rng.integers(0, 256, size=self._obs_shape, dtype=np.uint8)
 
     def reset(self, seed=None):
         self._t = 0
@@ -114,6 +130,73 @@ class FakeDiscreteEnv:
             self._t = 0
         reward = float(self._rng.normal()) * self._reward_scale
         return self._obs(), reward, terminated, False, {}
+
+
+class StragglerEnv:
+    """Wraps another env and adds a delay to each step: `base_delay_s`
+    always (an emulator's cost), plus `straggler_delay_s` with probability
+    `straggler_prob` (the long-tail stall, a slow frame or an auto-reset,
+    that a lockstep pool puts on every wave). Tests of the async pool's
+    ready-set waves run on it."""
+
+    def __init__(
+        self,
+        inner,
+        base_delay_s: float = 0.0,
+        straggler_delay_s: float = 0.0,
+        straggler_prob: float = 0.0,
+        seed: int = 0,
+    ):
+        self._inner = inner
+        self._base_delay_s = base_delay_s
+        self._straggler_delay_s = straggler_delay_s
+        self._straggler_prob = straggler_prob
+        self._rng = np.random.default_rng(seed)
+        self.task_id = getattr(inner, "task_id", 0)
+
+    @property
+    def action_space_n(self) -> int:
+        return self._inner.action_space_n
+
+    def reset(self, seed=None):
+        return self._inner.reset(seed=seed)
+
+    def step(self, action):
+        delay = self._base_delay_s
+        if self._straggler_delay_s > 0.0 and self._rng.uniform() < self._straggler_prob:
+            delay += self._straggler_delay_s
+        if delay > 0.0:
+            time.sleep(delay)
+        return self._inner.step(action)
+
+
+class StragglerFactory:
+    """Picklable env factory that wraps another factory's envs in
+    `StragglerEnv` (seeded `seed + 17`), for thread and process actors."""
+
+    def __init__(
+        self,
+        inner,
+        base_delay_s: float = 0.0,
+        straggler_delay_s: float = 0.0,
+        straggler_prob: float = 0.0,
+    ):
+        self.inner = inner
+        self.base_delay_s = base_delay_s
+        self.straggler_delay_s = straggler_delay_s
+        self.straggler_prob = straggler_prob
+
+    def __call__(self, seed: int, env_index=None):
+        from torched_impala_tpu_torch.envs.factory import call_env_factory
+
+        env = call_env_factory(self.inner, seed, env_index)
+        return StragglerEnv(
+            env,
+            base_delay_s=self.base_delay_s,
+            straggler_delay_s=self.straggler_delay_s,
+            straggler_prob=self.straggler_prob,
+            seed=seed + 17,
+        )
 
 
 class CrashingFactory:

@@ -14,6 +14,10 @@ train mode with fake envs only).
         --fake-envs --actor-mode thread --num-actors 4 --envs-per-actor 8 \\
         --total-steps 100 [--fused-epilogue] [--device cpu]
 
+    python -m torched_impala_tpu_torch.run --config procgen --fake-envs \\
+        --total-steps 100 [--fused-conv] [--fused-epilogue] [--dp -1] \\
+        [--device cpu]
+
     python -m torched_impala_tpu_torch.run --config pong --fake-envs \\
         --total-steps 100 --superbatch-k 4 [--device cpu]
 
@@ -32,7 +36,14 @@ K does not divide runs its largest multiple of K and warns).
 and `donate_batch` (a slot is released after the step that consumed it).
 
 The default device is the CUDA card; without one the run fails unless
-`--device cpu` is given.
+`--device cpu` is given. `--dp N` shards the learner batch over N devices
+as JAX's flag does (0 one device, -1 every visible one): only one device
+is ported, so a count above one raises before anything starts.
+
+The last line, `done: ...`, gives the steps, frames, episodes and wall
+seconds, the seconds to the first learner step (`first_step_s`: the
+fleet's boot), the env frames/s from the first step on, and on the card
+the peak device memory.
 
 `--checkpoint-dir` saves the learner's state: with `--async-checkpoint`
 a writer thread takes the interval saves with run manifests
@@ -52,8 +63,9 @@ import sys
 import time
 
 import numpy as np
+import torch
 
-from torched_impala_tpu_torch import configs
+from torched_impala_tpu_torch import configs, resolve_device
 from torched_impala_tpu_torch.envs.fake import CrashingFactory
 from torched_impala_tpu_torch.resilience import AsyncCheckpointer, ChaosPlan, config_fingerprint
 from torched_impala_tpu_torch.runtime.loop import train
@@ -83,6 +95,12 @@ RESUME_CPU_EXAMPLE = (
 SUPERBATCH_CPU_EXAMPLE = (
     "--config pong --fake-envs --num-actors 2 --batch-size 4 --unroll-length 4 "
     "--total-steps 4 --superbatch-k 2 --device cpu"
+)
+# The PROCGEN preset (64x64x3, 15 actions) on two async pools of one
+# worker each.
+PROCGEN_CPU_EXAMPLE = (
+    "--config procgen --fake-envs --num-actors 2 --batch-size 4 --unroll-length 4 "
+    "--total-steps 3 --device cpu"
 )
 PONG_TRANSFORMER_CPU_EXAMPLE = (
     CPU_EXAMPLE.replace("--config pong", "--config pong_transformer")
@@ -135,6 +153,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--transformer-dtype", choices=("float32", "bfloat16"),
                    default=None,
                    help="the transformer core's matmul compute dtype")
+    p.add_argument("--dp", type=int, default=None,
+                   help="shard the learner batch over N devices (-1 = all); "
+                   "more than one raises (not ported)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="'cuda' (default) or 'cpu'")
@@ -181,6 +202,7 @@ def build_config(args: argparse.Namespace) -> configs.ExperimentConfig:
         "transformer_dtype": args.transformer_dtype,
         "remat_torso": args.remat_torso or None,
         "steps_per_dispatch": args.steps_per_dispatch,
+        "dp_devices": args.dp,
     }
     if args.superbatch_k is not None:
         overrides.update(traj_ring=True, steps_per_dispatch=args.superbatch_k, donate_batch=True)
@@ -199,6 +221,8 @@ def _print_logger(logs) -> None:
 def main(argv=None) -> int:
     args = parse_args(argv)
     cfg = build_config(args)
+    device = resolve_device(args.device)
+    configs.resolve_dp_devices(cfg.dp_devices, device)
     interval = (
         args.checkpoint_interval
         if args.checkpoint_interval is not None
@@ -233,6 +257,10 @@ def main(argv=None) -> int:
     if args.grad_accum is not None:
         # No truthiness filter: 0 reaches the Learner's own >= 1 check.
         learner_config = dataclasses.replace(learner_config, grad_accum=args.grad_accum)
+    # (step, host time) at the run's start step, then after each learner
+    # dispatch: the first dispatch's ends the fleet's boot (pools, actors,
+    # the first batch).
+    dispatch_times = []
     t0 = time.monotonic()
     try:
         result = train(
@@ -247,7 +275,7 @@ def main(argv=None) -> int:
             optimizer=configs.make_optimizer(cfg),
             total_steps=args.total_steps,
             seed=args.seed,
-            device=args.device,
+            device=device,
             logger=_print_logger,
             log_every=args.log_every,
             checkpointer=checkpointer,
@@ -256,17 +284,26 @@ def main(argv=None) -> int:
             async_checkpointer=async_checkpointer,
             config_hash=config_hash,
             chaos=chaos_plan,
+            on_learner_step=lambda n: dispatch_times.append((n, time.monotonic())),
         )
     finally:
         if async_checkpointer is not None:
             async_checkpointer.close()
     returns = [r for _, r, _ in result.episode_returns]
+    dispatches = dispatch_times[1:]
+    timing = ""
+    if dispatches:
+        (n0, first), (n1, last) = dispatches[0], dispatches[-1]
+        after_first = (n1 - n0) * cfg.frames_per_step / (last - first) if n1 > n0 else float("nan")
+        timing = f" first_step_s={first - t0:.1f} frames_per_s_after_first_step={after_first:.1f}"
+    if device.type == "cuda":
+        timing += f" peak_device_mb={torch.cuda.max_memory_allocated(device) / 2**20:.1f}"
     print(
         f"done: steps={result.learner.num_steps} frames={result.num_frames} "
         f"episodes={len(returns)} "
         f"return_mean={np.mean(returns) if returns else float('nan'):.4g} "
         f"actor_restarts={result.actor_restarts} "
-        f"seconds={time.monotonic() - t0:.1f}",
+        f"seconds={time.monotonic() - t0:.1f}{timing}",
         flush=True,
     )
     return 0
