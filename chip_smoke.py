@@ -153,7 +153,8 @@ non-zero (no phase's failure is caught):
    `loop.train` as in breakout for 12 steps (>= 2 V-trace, 42 LSTM-cell
    and 24 residual-block launches a step); the param store's versions
    must be the frame counts of steps 0, 2, ..., 12 and nothing else, and
-   the lr of each optimizer step at counts 0-5 `make_lr_schedule`'s.
+   the lr of each optimizer step at counts 0-5 `make_lr_schedule`'s. No
+   profiled run (50-72 s on the card): the smoke keeps its length.
    Then, from the loop's final state, one train step alone on a fixed
    batch with non-zero LSTM start states for (G, remat) = (1, off)
    twice, (2, off), (1, on) and (2, on), each in a learner of its own
@@ -193,8 +194,10 @@ non-zero (no phase's failure is caught):
    workers' checks included), with the train step alone and a profiled
    run of 6 steps: V-trace >= 1 launch a step and held to its plain
    version on the run's own [20, 64] input (1e-5); the residual block
-   >= 6 launches a learner step, and held to its plain version on the
-   run's own inputs at every shape it was launched at (the learner's N
+   >= 6 launches a learner step at the learner's N (counted apart from
+   the actors' waves), and held to its plain version on the main run's
+   own inputs (not the train step alone's or the profiled run's) at
+   every shape it was launched at (the learner's N
    = 1344 at 32x32x16, 16x16x32 and 8x8x32, and each N the actors' waves
    gave it), at the bf16 gate of phase 5.
 
@@ -211,6 +214,7 @@ and prints no result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -1412,7 +1416,7 @@ PHASE_LINES = {}
 
 
 def drive(name, cfg, steps, device, standalone=True, at_step5=None, after=None,
-          learner_fields=None, profiled=True):
+          learner_fields=None, profiled=True, during=()):
     """`loop.train` with `cfg` for `steps` learner steps on the card, every
     kernel's launch count set to 0 just before and read just after; then,
     with `standalone`, the train step alone on a fixed batch, one actor
@@ -1421,7 +1425,8 @@ def drive(name, cfg, steps, device, standalone=True, at_step5=None, after=None,
     the first logged learner step from the 5th on (the 5th at one step a
     dispatch, the 8th at K = 4); its dict goes, as `seen`, to
     `after(result, seen)`, which runs after the run and returns a dict
-    merged into the phase line. `learner_fields` replace fields of the LearnerConfig. Raises if
+    merged into the phase line. `learner_fields` replace fields of the LearnerConfig. The
+    context managers in `during` are entered around the main run alone. Raises if
     the run did not train on the card."""
     import torch
 
@@ -1443,10 +1448,13 @@ def drive(name, cfg, steps, device, standalone=True, at_step5=None, after=None,
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
     t0 = time.monotonic()
-    result = loop.train(
-        agent=agent, total_steps=steps, logger=logger, log_every=1,
-        **train_args(cfg, device, learner_fields),
-    )
+    with contextlib.ExitStack() as stack:
+        for manager in during:
+            stack.enter_context(manager)
+        result = loop.train(
+            agent=agent, total_steps=steps, logger=logger, log_every=1,
+            **train_args(cfg, device, learner_fields),
+        )
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = read_launches()
@@ -1873,11 +1881,12 @@ def phase_pong(device):
 class CaptureInputs:
     """While installed, `module.<name>` is wrapped: for each key that
     `key(args, kwargs)` returns for a call (None: not kept), a clone of the
-    first such call's arguments is kept in `captured`. The calls go through
-    unchanged, so the wrapper's launch count still counts them."""
+    first such call's arguments is kept in `captured`, and `calls` counts
+    the calls by key. The calls go through unchanged, so the wrapper's
+    launch count still counts them."""
 
     def __init__(self, module, name, key):
-        self.module, self.name, self.key, self.captured = module, name, key, {}
+        self.module, self.name, self.key, self.captured, self.calls = module, name, key, {}, {}
 
     def __enter__(self):
         import torch
@@ -1890,6 +1899,8 @@ class CaptureInputs:
 
         def wrapper(*args, **kwargs):
             key = probe.key(args, kwargs)
+            if key is not None:
+                probe.calls[key] = probe.calls.get(key, 0) + 1
             if key is not None and key not in probe.captured:
                 probe.captured[key] = ([clone(a) for a in args],
                                        {k: clone(v) for k, v in kwargs.items()})
@@ -2216,7 +2227,8 @@ def phase_breakout_accum(device, smi):
 
     ParamStore.publish, RMSProp.step = recording_publish, recording_step
     try:
-        launches = drive("breakout_accum", cfg, steps, device, after=after, learner_fields=fields)
+        launches = drive("breakout_accum", cfg, steps, device, after=after, learner_fields=fields,
+                         profiled=False)
     finally:
         ParamStore.publish, RMSProp.step = publish, step
     # The loop's own checks: kernels of the path, publishes on crossings,
@@ -2430,15 +2442,20 @@ def phase_procgen(device, smi):
     learner_n = (T + 1) * B
     vtraces = CaptureInputs(vtrace_cuda, "vtrace_cuda", lambda a, kw: tuple(kw["log_rhos"].shape))
     blocks = CaptureInputs(conv_block_cuda, "resblock_cuda", lambda a, kw: tuple(a[0].shape))
-    with vtraces, blocks:
-        launches = drive(
-            "procgen", cfg, steps, device, at_step5=processes_mid_run,
-            after=lambda r, seen: check_workers("procgen", r, seen, count=PROCGEN_WORKERS),
-        )
-    if launches["vtrace"] < steps:
-        raise AssertionError(f"procgen: {launches['vtrace']} vtrace launches < {steps} steps")
-    if launches["resblock"] < 6 * steps:
-        raise AssertionError(f"procgen: {launches['resblock']} resblock launches < 6 a step")
+    launches = drive(
+        "procgen", cfg, steps, device, at_step5=processes_mid_run,
+        after=lambda r, seen: check_workers("procgen", r, seen, count=PROCGEN_WORKERS),
+        during=(vtraces, blocks),
+    )
+    # The actors' waves launch most blocks; the learner's own, at N =
+    # (T + 1) * B, are counted apart.
+    learner_blocks = sum(n for s, n in blocks.calls.items() if s[0] == learner_n)
+    if launches["vtrace"] < steps or vtraces.calls.get((T, B), 0) < steps:
+        raise AssertionError(f"procgen: {launches['vtrace']} vtrace launches, "
+                             f"{vtraces.calls} calls by shape, < {steps} steps")
+    if learner_blocks < 6 * steps:
+        raise AssertionError(f"procgen: {learner_blocks} resblock launches at N = {learner_n} "
+                             f"< 6 a step")
     args, kwargs = vtraces.captured[(T, B)]
     out, ref = vtrace_cuda.vtrace_cuda(**kwargs), vtrace_reference(**kwargs)
     vtrace_err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
@@ -2460,6 +2477,7 @@ def phase_procgen(device, smi):
         "card": smi,
         "dp_devices_resolved": dp,
         "launches_per_learner_step": {k: launches[k] / steps for k in ("vtrace", "resblock")},
+        "resblock_learner_launches_per_learner_step": learner_blocks / steps,
         "vtrace_max_abs_err_on_the_runs_input": vtrace_err,
         "resblock_learner_max_abs_err": {k: errors[k] for k in learner_keys},
         "resblock_learner_equal_share": {k: equal[k] for k in learner_keys},

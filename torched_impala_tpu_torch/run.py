@@ -257,10 +257,16 @@ def main(argv=None) -> int:
     if args.grad_accum is not None:
         # No truthiness filter: 0 reaches the Learner's own >= 1 check.
         learner_config = dataclasses.replace(learner_config, grad_accum=args.grad_accum)
-    # (step, host time) at the run's start step, then after each learner
-    # dispatch: the first dispatch's ends the fleet's boot (pools, actors,
-    # the first batch).
-    dispatch_times = []
+    # (step, host time) at the run's start step, after the first learner
+    # dispatch (which ends the fleet's boot: pools, actors, the first
+    # batch) and after the latest one.
+    marks = []
+
+    def mark(n):
+        if len(marks) == 3:
+            marks.pop()
+        marks.append((n, time.monotonic()))
+
     t0 = time.monotonic()
     try:
         result = train(
@@ -284,16 +290,15 @@ def main(argv=None) -> int:
             async_checkpointer=async_checkpointer,
             config_hash=config_hash,
             chaos=chaos_plan,
-            on_learner_step=lambda n: dispatch_times.append((n, time.monotonic())),
+            on_learner_step=mark,
         )
     finally:
         if async_checkpointer is not None:
             async_checkpointer.close()
     returns = [r for _, r, _ in result.episode_returns]
-    dispatches = dispatch_times[1:]
     timing = ""
-    if dispatches:
-        (n0, first), (n1, last) = dispatches[0], dispatches[-1]
+    if len(marks) > 1:
+        (n0, first), (n1, last) = marks[1], marks[-1]
         after_first = (n1 - n0) * cfg.frames_per_step / (last - first) if n1 > n0 else float("nan")
         timing = f" first_step_s={first - t0:.1f} frames_per_s_after_first_step={after_first:.1f}"
     if device.type == "cuda":
