@@ -147,7 +147,23 @@ non-zero (no phase's failure is caught):
    LSTM(256) core, bf16 torso, 4 actions) as 4 thread actors x 8 envs
    for 12 learner steps, as pong_thread, once with the preset's unfused
    blocks and once with `fused_conv=True`.
-13. breakout_accum: the BREAKOUT preset at full width with the fused
+13. breakout_bf16: the BREAKOUT preset with `train_dtype="bfloat16"` (the
+   bf16 train step: params lowered from the f32 masters inside the
+   differentiated step) and the fused blocks, on 4 thread actors x 8
+   envs for 12 learner steps, as breakout_superbatch: >= 1 V-trace, 21
+   LSTM-cell and 6 residual-block (N = 672) launches a learner step, each
+   kernel held to its plain version on the run's own learner inputs at
+   the gates of phases 3-5; the params and RMSProp moments float32 after
+   the run; on a fixed batch with non-zero LSTM start states, the
+   gradient-rounding contract (every torso and head grad
+   bf16-representable, no LSTM grad); the greedy-action gate's (ok,
+   mismatches) on the card, built as `run.py --train-dtype bfloat16`
+   builds the config and failing the phase where run.py would fall back
+   to f32; then the bf16 train step alone against the
+   f32 one (the same preset with its bf16 torso) from the run's final
+   state, twice each, alternating: events ms, device-busy ms, kernels a
+   step, peak MB. No profiled run: the smoke keeps its length.
+14. breakout_accum: the BREAKOUT preset at full width with the fused
    blocks, both memory levers (`grad_accum=2`, `remat_torso=True`), the
    lr scaled by B / 16 with a 4-step warmup and `publish_interval=2`:
    `loop.train` as in breakout for 12 steps (>= 2 V-trace, 42 LSTM-cell
@@ -169,7 +185,7 @@ non-zero (no phase's failure is caught):
    within 1e-3, with the bf16 torso below the bf16 torso's own distance
    and grad-norm change from the f32 one (plus 1e-3 of the grad norm);
    each lever's peak device memory below (1, off)'s.
-14. breakout_superbatch: the BREAKOUT preset with the fused blocks at 2
+15. breakout_superbatch: the BREAKOUT preset with the fused blocks at 2
    steps a dispatch (the queue feed's in-place superbatch assembly) on 4
    thread actors x 8 envs for 6 dispatches: V-trace exactly once a
    learner step, >= 21 LSTM-cell and >= 6 residual-block launches a
@@ -178,13 +194,13 @@ non-zero (no phase's failure is caught):
    inputs, at the gates of phases 4 and 5. No profiled run (≈ 45 s on
    the card): the smoke keeps its length. Its env frames/s spans three
    dispatches (steps 6 to 12) and is recorded, not compared.
-15. pong_transformer: the same with the PONG_TRANSFORMER preset
+16. pong_transformer: the same with the PONG_TRANSFORMER preset
    (Nature-CNN bf16 torso, transformer core d_model 256, 2 layers, 4
    heads, window 128) for 12 learner steps with the attention kernels
    forced and `fused_epilogue=True`; it must launch the attention
    forward and backward >= 2 times a learner step each, the fused loss's
    forward and backward >= once each and V-trace never.
-16. procgen: the PROCGEN preset (IMPALA deep ResNet without a core,
+17. procgen: the PROCGEN preset (IMPALA deep ResNet without a core,
    64x64x3 uint8, 15 actions, bf16 torso, T=20, B=64, the async
    ready-set pool at `pool_ready_fraction` 0.5) as `run.py --config
    procgen --fake-envs --num-actors 64 --fused-conv` configures it, its
@@ -2107,6 +2123,130 @@ def phase_breakout(device, fused):
     return launches
 
 
+def phase_breakout_bf16(device, smi):
+    """The BREAKOUT preset as `run.py --config breakout --fake-envs
+    --actor-mode thread --num-actors 4 --envs-per-actor 8 --fused-conv
+    --train-dtype bfloat16` configures it, for BREAKOUT_STEPS steps (module
+    docstring, phase 13): the greedy-action gate that `run.py` runs first
+    must pass on the card, so that run.py trains in bf16; the kernels'
+    floors a step and each held to its plain version on the run's own
+    learner inputs; f32 params and moments after the run; the
+    gradient-rounding contract on the card; the bf16 train step alone
+    against the f32 one."""
+    import torch
+
+    from torched_impala_tpu_torch import configs, run
+    from torched_impala_tpu_torch.ops import conv_block, conv_block_cuda, lstm, lstm_cuda, vtrace_cuda
+    from torched_impala_tpu_torch.ops.vtrace import vtrace_reference
+
+    cfg = run.build_config(run.parse_args(
+        ["--config", "breakout", "--fake-envs", "--total-steps", str(BREAKOUT_STEPS),
+         "--actor-mode", "thread", "--num-actors", "4", "--envs-per-actor", "8", "--fused-conv",
+         "--train-dtype", "bfloat16"]))
+    assert (cfg.fused_conv, cfg.train_dtype) == (True, "bfloat16")
+    failures = []
+    # run.main's gate, on the run's device: a failure would make run.py
+    # warn and train in f32.
+    gate_ok, gate_mismatches = configs.check_train_dtype_parity(cfg, device, seed=0)
+    if not gate_ok:
+        failures.append(f"greedy-action gate: {gate_mismatches} mismatches")
+    T, B = cfg.unroll_length, cfg.batch_size
+    assert cfg.num_actors * cfg.envs_per_actor == B == 32
+    assert configs.make_learner_config(cfg).train_dtype == "bfloat16"
+    steps = BREAKOUT_STEPS
+    learner_n = (T + 1) * B
+    vtraces = CaptureInputs(vtrace_cuda, "vtrace_cuda", lambda a, kw: tuple(kw["log_rhos"].shape))
+    cells = CaptureInputs(lstm_cuda, "lstm_cell_cuda",
+                          lambda a, kw: tuple(a[0].shape) if a[0].shape[0] == B else None)
+    blocks = CaptureInputs(conv_block_cuda, "resblock_cuda",
+                           lambda a, kw: tuple(a[0].shape) if a[0].shape[0] == learner_n else None)
+    run = {}
+
+    def after(result, seen):
+        run["learner"] = result.learner
+        return {}
+
+    launches = drive("breakout_bf16", cfg, steps, device, standalone=False, profiled=False,
+                     after=after, during=(vtraces, cells, blocks))
+    learner = run["learner"]
+    learner_blocks = sum(blocks.calls.values())
+    if launches["vtrace"] < steps or vtraces.calls.get((T, B), 0) < steps:
+        failures.append(f"{launches['vtrace']} vtrace launches < 1 a step")
+    if launches["lstm_cell"] < (T + 1) * steps or cells.calls.get((B, 256), 0) < (T + 1) * steps:
+        failures.append(f"{launches['lstm_cell']} lstm launches < 21 a step")
+    if learner_blocks < 6 * steps:
+        failures.append(f"{learner_blocks} resblock launches at N = {learner_n} < 6 a step")
+    errors, equal = {}, {}
+    _, kwargs = vtraces.captured[(T, B)]
+    out, ref = vtrace_cuda.vtrace_cuda(**kwargs), vtrace_reference(**kwargs)
+    errors["vtrace"] = max(float((a - b).abs().max()) for a, b in zip(out, ref))
+    for shape, (args, _) in cells.captured.items():
+        out, ref = lstm_cuda.lstm_cell_cuda(*args), lstm.lstm_reference(*args)
+        errors["lstm_cell_" + "x".join(map(str, shape))] = max(
+            float((a - b).abs().max()) for a, b in zip(out, ref))
+    for shape, (args, _) in sorted(blocks.captured.items()):
+        out, ref = conv_block_cuda.resblock_cuda(*args), conv_block.block_reference(*args)
+        key = "resblock_" + "x".join(map(str, shape))
+        torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_ULP, atol=BF16_ULP)
+        errors[key] = float((out.float() - ref.float()).abs().max())
+        equal[key] = float((out == ref).float().mean())
+    lstm_err = max(v for k, v in errors.items() if k.startswith("lstm"))
+    if (errors["vtrace"] > 1e-5 or lstm_err > LSTM_ATOL or len(blocks.captured) != 3
+            or min(equal.values()) < 0.99):
+        failures.append(f"kernels vs plain {errors}, equal {equal}")
+    accumulators = {
+        "params": sorted({str(p.dtype) for p in learner.params.values()}),
+        "nu": sorted({str(v.dtype) for v in learner._optimizer.nu.values()}),
+    }
+    if accumulators != {"params": ["torch.float32"], "nu": ["torch.float32"]}:
+        failures.append(f"accumulators {accumulators}")
+
+    # On one fixed batch with non-zero LSTM start states: which grads of
+    # the bf16 step are bf16-representable, by family.
+    rng = np.random.default_rng(9)
+    start = tuple(
+        torch.from_numpy(rng.normal(size=(B, cfg.lstm_size)).astype(np.float32) * 0.5).to(device)
+        for _ in range(2)
+    )
+    batch = fixed_batch(cfg, device, start)
+    grads, _ = learner._grads(batch)
+    rounded = collections.defaultdict(list)
+    for name, g in zip(learner.params, grads):
+        family = "lstm" if name.startswith("lstm.") else "heads" if "_head." in name else "torso"
+        rounded[family].append(bool(torch.equal(g.bfloat16().float(), g)))
+    contract = {family: all(flags) if family != "lstm" else not any(flags)
+                for family, flags in rounded.items()}
+    if contract != {"torso": True, "lstm": True, "heads": True}:
+        failures.append(f"rounding contract {dict(rounded)}")
+
+    # The bf16 train step alone against the f32 one (the same preset,
+    # bf16 torso), from the run's final state on the fixed batch, twice.
+    state = learner.get_state()
+    del learner, run["learner"]
+    alone = {"bfloat16": [], "float32": []}
+    for dtype in ("bfloat16", "float32", "bfloat16", "float32"):
+        step = accum_step(dataclasses.replace(cfg, train_dtype=dtype), device, state, batch,
+                          1, False, {}, timed=True)
+        alone[dtype].append({k: step[k] for k in (
+            "events_ms", "device_busy_ms", "kernels_per_step", "peak_mb", "step_peak_mb")})
+    emit({
+        "phase": "breakout_bf16_checks",
+        "card": smi,
+        "launches_per_learner_step": {k: launches[k] / steps for k in ("vtrace", "lstm_cell", "resblock")},
+        "resblock_learner_launches_per_learner_step": learner_blocks / steps,
+        "max_abs_err_on_the_runs_inputs": errors,
+        "resblock_equal_share": equal,
+        "accumulator_dtypes_after_the_run": accumulators,
+        "grads_bf16_representable": {k: f"{sum(v)}/{len(v)}" for k, v in rounded.items()},
+        "greedy_action_gate": {"ok": gate_ok, "mismatches": gate_mismatches, "probe_actions": 8 * 4},
+        "train_step_alone": alone,
+        "failures": failures,
+    })
+    if failures:
+        raise AssertionError(f"breakout_bf16: {failures}")
+    return launches
+
+
 ACCUM_G = 2
 ACCUM_PUBLISH_INTERVAL = 2
 # One step at G = 2 with remat against one at G = 1 without, from the same
@@ -2133,16 +2273,18 @@ def step_distance(a, b, before) -> float:
     return math.sqrt(num / den)
 
 
-def accum_step(cfg, device, state, batch, grad_accum, remat, learner_fields, breakdown=False):
+def accum_step(cfg, device, state, batch, grad_accum, remat, learner_fields, breakdown=False,
+               timed=False):
     """A learner for `cfg` with `grad_accum` and `remat_torso=remat`, set to
     `state`, takes one warm-up step on `batch` and is set to `state` again;
     then one measured step. Returns its params after the step, logs,
     launches, peak MB and peak MB above what was allocated before the
-    step, and with `breakdown` where a third step from `state` peaks
+    step, with `breakdown` where a third step from `state` peaks
     (`profiling.peak_live_blocks`; not with remat, whose recompute inside
     the fused block's backward the allocator's stack recording does not
-    survive); the learner is dropped, so the next one's peak does not
-    count it."""
+    survive), and with `timed` the median of 10 further steps between CUDA
+    events and the profiler's device-busy ms and kernels a step over 5;
+    the learner is dropped, so the next one's peak does not count it."""
     import torch
 
     from torched_impala_tpu_torch import configs
@@ -2174,6 +2316,11 @@ def accum_step(cfg, device, state, batch, grad_accum, remat, learner_fields, bre
     if breakdown:
         learner.set_state(state)
         out["breakdown"] = profiling.peak_live_blocks(lambda: learner.train_step(batch))
+    if timed:
+        out["events_ms"] = time_cuda(lambda: learner.train_step(batch), iters=10, warmup=2)
+        busy_us, out["kernels_per_step"] = profiling.device_us(
+            lambda: learner.train_step(batch), calls=5)
+        out["device_busy_ms"] = None if busy_us is None else busy_us / 1e3
     return out
 
 
@@ -2181,7 +2328,7 @@ def phase_breakout_accum(device, smi):
     """The BREAKOUT preset at full width with both memory levers, the
     batch-scaled lr with warmup and a publish interval: `loop.train` for
     BREAKOUT_STEPS steps on 4 thread actors x 8 envs, then checks of one
-    train step alone on a fixed batch (module docstring, phase 13)."""
+    train step alone on a fixed batch (module docstring, phase 14)."""
     import torch
 
     from torched_impala_tpu_torch import configs
@@ -2364,7 +2511,7 @@ def phase_breakout_superbatch(device):
     """BREAKOUT fused at 2 steps a dispatch (the queue feed's superbatch
     assembly) on 4 thread actors x 8 envs for 6 dispatches; the LSTM cell
     and the residual block held to their plain versions on the run's own
-    learner inputs (module docstring, phase 14)."""
+    learner inputs (module docstring, phase 15)."""
     import torch
 
     from torched_impala_tpu_torch import configs
@@ -2420,7 +2567,7 @@ def phase_breakout_superbatch(device):
 def phase_procgen(device, smi):
     """The PROCGEN preset as `run.py --config procgen --fake-envs
     --num-actors 64 --fused-conv` configures it (module docstring, phase
-    16): V-trace at [20, 64] and the bf16 block at the learner's N = 1344
+    17): V-trace at [20, 64] and the bf16 block at the learner's N = 1344
     and the async waves' N, each held to its plain version on the run's
     own inputs."""
     import torch
@@ -3003,6 +3150,7 @@ def run_phases():
     phase_resume(device, smi)
     launches["lstm_cell"] = phase_breakout(device, fused=False)["lstm_cell"]
     launches["resblock"] = phase_breakout(device, fused=True)["resblock"]
+    phase_breakout_bf16(device, smi)
     phase_breakout_accum(device, smi)
     phase_breakout_superbatch(device)
     phase_procgen(device, smi)

@@ -307,6 +307,39 @@ def test_lstm_grads_through_kernel_forward(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B", [32, 8])
+def test_lstm_straight_through_grads_reach_the_master_unrounded(cuda, B):
+    """The bf16 train step's LSTM cell: the kernel runs on f32 tensors
+    holding the bf16-rounded weights (`precision.cast_to_compute`'s
+    straight-through rounding), its forward is the kernel's on those
+    values, and the grads of wi, wh and b reach the f32 masters
+    unrounded: not bf16-representable, and the plain version's grads on
+    the rounded values within the existing grads test's tolerance."""
+    from torched_impala_tpu_torch.ops import lstm, lstm_cuda, precision
+
+    x, h, c, *masters = _lstm_inputs(B, 256, 256, seed=5, device=cuda)
+    masters = [m.requires_grad_() for m in masters]
+    lowered = precision.cast_to_compute(
+        dict(zip("wi wh b".split(), masters)), torch.bfloat16, {"wi", "wh", "b"}
+    )
+    assert all(t.dtype == torch.float32 for t in lowered.values())
+    before = lstm_cuda.LAUNCHES
+    new_c, new_h = lstm.lstm_cell_fused(x, h, c, *lowered.values())
+    assert lstm_cuda.LAUNCHES == before + 1
+    rounded = [m.detach().bfloat16().float() for m in masters]
+    want_c, want_h, _ = lstm_cuda.lstm_cell_cuda(x, h, c, *rounded)
+    assert torch.equal(new_c, want_c) and torch.equal(new_h, want_h)
+    grads = torch.autograd.grad((new_c * 0.5 + new_h).sum(), masters)
+    plain = [r.requires_grad_() for r in rounded]
+    ref_c, ref_h, _ = lstm.lstm_reference(x, h, c, *plain)
+    want = torch.autograd.grad((ref_c * 0.5 + ref_h).sum(), plain)
+    for g, w in zip(grads, want):
+        assert g.dtype == torch.float32
+        assert not torch.equal(g.bfloat16().float(), g)
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("shape", BLOCK_SHAPES, ids=str)
 def test_resblock_kernel_matches_reference_bf16(cuda, shape):
     from torched_impala_tpu_torch.ops import conv_block, conv_block_cuda
@@ -320,6 +353,35 @@ def test_resblock_kernel_matches_reference_bf16(cuda, shape):
     assert out.dtype == torch.bfloat16 and out.shape == shape
     torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_ULP, atol=BF16_ULP)
     assert float((out == ref).float().mean()) >= 0.99
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", BLOCK_SHAPES[:3], ids=str)
+def test_resblock_bf16_params_match_reference_and_their_f32_copies(cuda, shape):
+    """The bf16 train step's block: bf16 x and bf16 params (rounded from
+    f32 masters) through `block_forward` launch the bf16 kernel once, held
+    to `block_reference` on the same bf16 params within the bf16 gate,
+    and equal bit for bit to the launch on f32 copies of the same rounded
+    params; its backward returns the params' grads in bf16."""
+    from torched_impala_tpu_torch.ops import conv_block, conv_block_cuda
+
+    x, *params = _block_inputs(*shape, torch.bfloat16, seed=shape[1] + 1, device=cuda)
+    half = [p.bfloat16() for p in params]
+    before = conv_block_cuda.LAUNCHES
+    out = conv_block.block_forward(x, *half)
+    assert conv_block_cuda.LAUNCHES == before + 1
+    ref = conv_block.block_reference(x, *half)
+    f32_copies = conv_block_cuda.resblock_cuda(x, *(p.float() for p in half))
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == shape
+    torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_ULP, atol=BF16_ULP)
+    assert float((out == ref).float().mean()) >= 0.99
+    assert torch.equal(out, f32_copies)
+    leaves = [p.requires_grad_() for p in half]
+    grads = torch.autograd.grad(
+        conv_block.fused_residual_block(x, *leaves).float().sum(), leaves
+    )
+    assert all(g.dtype == torch.bfloat16 for g in grads)
 
 
 @pytest.mark.gpu

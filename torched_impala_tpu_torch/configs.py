@@ -8,15 +8,17 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from torched_impala_tpu_torch.models.agent import Agent
-from torched_impala_tpu_torch.models.nets import ImpalaNet
+from torched_impala_tpu_torch.models.nets import ImpalaNet, bound_params
 from torched_impala_tpu_torch.models.torsos import (
     AtariDeepTorso,
     AtariShallowTorso,
     MLPTorso,
 )
+from torched_impala_tpu_torch.ops import precision
 from torched_impala_tpu_torch.ops.losses import ImpalaLossConfig
 from torched_impala_tpu_torch.optim import (
     RMSProp,
@@ -60,6 +62,14 @@ class ExperimentConfig:
     fused_conv: bool = False
     # Torso compute dtype; params, heads and all loss math stay float32.
     compute_dtype: str = "float32"
+    # The train step's compute dtype (`run.py --train-dtype`): "bfloat16"
+    # lowers the f32 master params to bf16 inside the learner's
+    # differentiated closure and runs the torso in bf16 whatever
+    # compute_dtype says; grads, optimizer state and the master params
+    # stay float32 (runtime/learner.py). run.py holds it to the f32 agent
+    # by `check_train_dtype_parity` and falls back to float32 when that
+    # fails.
+    train_dtype: str = "float32"
     # Rematerialize the torso in the learner's backward pass
     # (torch.utils.checkpoint): one more torso forward a step in place of
     # keeping its activations between the passes; the lever when device
@@ -280,18 +290,21 @@ def make_agent(cfg: ExperimentConfig, seed: int = 0) -> Agent:
         raise ValueError(
             f"fused_conv requires model='deep_resnet' (got model={cfg.model!r})"
         )
+    precision.validate_compute_dtype("train_step", cfg.train_dtype)
+    # The bf16 train step runs the torso in bf16 (JAX's make_agent); the
+    # heads and the LSTM core stay float32, the transformer core keeps
+    # transformer_dtype.
+    torso_dtype = "bfloat16" if cfg.train_dtype == "bfloat16" else cfg.compute_dtype
     g = torch.Generator().manual_seed(seed)
     if cfg.model == "mlp":
-        torso = MLPTorso(cfg.obs_shape[-1], dtype=cfg.compute_dtype, generator=g)
+        torso = MLPTorso(cfg.obs_shape[-1], dtype=torso_dtype, generator=g)
     elif cfg.model == "shallow_cnn":
-        torso = AtariShallowTorso(
-            cfg.obs_shape[-1], dtype=cfg.compute_dtype, generator=g
-        )
+        torso = AtariShallowTorso(cfg.obs_shape[-1], dtype=torso_dtype, generator=g)
     elif cfg.model == "deep_resnet":
         torso = AtariDeepTorso(
             cfg.obs_shape[-1],
             in_hw=tuple(cfg.obs_shape[:2]),
-            dtype=cfg.compute_dtype,
+            dtype=torso_dtype,
             fused_blocks=cfg.fused_conv,
             generator=g,
         )
@@ -322,6 +335,53 @@ def make_agent(cfg: ExperimentConfig, seed: int = 0) -> Agent:
     return Agent(net)
 
 
+def check_train_dtype_parity(
+    cfg: ExperimentConfig,
+    device,
+    *,
+    seed: int = 0,
+    batch: int = 8,
+    unroll: int = 4,
+) -> tuple[bool, int]:
+    """The greedy-action gate of `train_dtype` (JAX's
+    `check_train_dtype_parity`): on a fixed `[unroll, batch]` probe made
+    from `seed`, the argmax actions of the f32 agent and of the train
+    dtype's agent on the params lowered as the learner's closure lowers
+    them must agree. Returns (ok, mismatches over the unroll * batch
+    actions); float32 is (True, 0) at once. Runs on `device`."""
+    if cfg.train_dtype == "float32":
+        return True, 0
+    device = torch.device(device)
+    ref = make_agent(dataclasses.replace(cfg, train_dtype="float32"), seed=seed).net.to(device)
+    half = make_agent(cfg, seed=seed).net.to(device)
+    half.load_state_dict(ref.state_dict())
+    rng = np.random.default_rng(seed)
+    shape = (unroll, batch, *cfg.obs_shape)
+    if cfg.obs_dtype == "uint8":
+        probe = rng.integers(0, 256, size=shape, dtype=np.uint8)
+    else:
+        probe = rng.normal(size=shape).astype(cfg.obs_dtype)
+    obs = torch.from_numpy(probe).to(device)
+    first = torch.zeros((unroll, batch), dtype=torch.bool, device=device)
+    first[0] = True
+
+    def greedy(net):
+        out, _ = net(obs, first, net.initial_state(batch), unroll=True)
+        return out.policy_logits.argmax(-1)
+
+    with torch.no_grad():
+        a_ref = greedy(ref)
+        lowered = precision.cast_to_compute(
+            dict(ref.named_parameters()),
+            getattr(torch, cfg.train_dtype),
+            half.straight_through_params(),
+        )
+        with bound_params(half, lowered):
+            a_half = greedy(half)
+    mismatches = int((a_ref != a_half).sum())
+    return mismatches == 0, mismatches
+
+
 def make_learner_config(cfg: ExperimentConfig) -> LearnerConfig:
     return LearnerConfig(
         batch_size=cfg.batch_size,
@@ -332,11 +392,13 @@ def make_learner_config(cfg: ExperimentConfig) -> LearnerConfig:
             entropy_coef=cfg.entropy_coef,
             reduction=cfg.loss_reduction,
             fused_epilogue=cfg.fused_epilogue,
+            train_dtype=cfg.train_dtype,
         ),
         max_grad_norm=cfg.max_grad_norm,
         traj_ring=cfg.traj_ring,
         steps_per_dispatch=cfg.steps_per_dispatch,
         donate_batch=cfg.donate_batch,
+        train_dtype=cfg.train_dtype,
     )
 
 

@@ -21,14 +21,23 @@ The LSTM core runs in float32 (a bf16 torso's features are cast up) and
 zeroes the carry rows where `first` is set before each cell step: the
 `hk.ResetCore` semantics of the JAX `_core_step`. The transformer core
 (models/transformer.py) resets by segment ids instead and carries a KV
-cache. The heads always run in float32; the value head is one wide
-(PopArt's per-task width is not ported yet)."""
+cache. The heads always run in float32, also on bf16 params (the
+params are cast up, as flax's Dense promotes them); the value head is one
+wide (PopArt's per-task width is not ported yet).
+
+`bound_params` runs the net on other tensors than its own params: the
+learner's bf16 train step binds the params that `ops/precision.py:
+cast_to_compute` lowered from the f32 masters, for the forward and the
+backward both (a rematerialized torso runs its forward again in the
+backward)."""
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional
+import contextlib
+from typing import Any, Iterator, Mapping, NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from torched_impala_tpu_torch.models.lstm import LSTMCell
@@ -45,6 +54,29 @@ class NetOutput(NamedTuple):
 
     policy_logits: torch.Tensor
     values: torch.Tensor
+
+
+@contextlib.contextmanager
+def bound_params(net: nn.Module, tensors: Mapping[str, torch.Tensor]) -> Iterator[None]:
+    """Within the block, `net`'s parameter `name` reads as `tensors[name]`
+    (any tensor, in the graph of whatever made it); the params come back
+    on exit. The net must not be shared with another thread meanwhile."""
+    saved = []
+    try:
+        for name, tensor in tensors.items():
+            owner, _, leaf = name.rpartition(".")
+            module = net.get_submodule(owner)
+            saved.append((module, leaf, module._parameters[leaf]))
+            module._parameters[leaf] = tensor
+        yield
+    finally:
+        for module, leaf, param in reversed(saved):
+            module._parameters[leaf] = param
+
+
+def _linear_f32(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """A head in float32 whatever its params' dtype."""
+    return F.linear(x, layer.weight.float(), layer.bias.float())
 
 
 def _reset_carry(carry, first: torch.Tensor):
@@ -87,6 +119,14 @@ class ImpalaNet(nn.Module):
         self.value_head = nn.Linear(features, 1)
         init_dense_(self.policy_head, generator)
         init_dense_(self.value_head, generator)
+
+    def straight_through_params(self) -> tuple[str, ...]:
+        """The params whose bf16 train-step gradients reach the f32 masters
+        unrounded: the LSTM cell's, whose fused backward (JAX's custom
+        VJP) returns float32 grads for bf16 primals."""
+        if self.core != "lstm":
+            return ()
+        return tuple(f"lstm.{name}" for name, _ in self.lstm.named_parameters())
 
     def initial_state(self, batch_size: int) -> NetState:
         """Zero carry `(c, h)`, each f32 `[B, lstm_size]`, or a fresh
@@ -135,7 +175,7 @@ class ImpalaNet(nn.Module):
                 core_out, state = self.transformer(features[None], first[None], state)
                 core_out = core_out[0]
         out = NetOutput(
-            policy_logits=self.policy_head(core_out),
-            values=self.value_head(core_out),
+            policy_logits=_linear_f32(self.policy_head, core_out),
+            values=_linear_f32(self.value_head, core_out),
         )
         return out, state

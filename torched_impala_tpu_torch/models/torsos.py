@@ -20,8 +20,10 @@ Layout hazards pinned by tests/test_torch_port_models.py:
   the flax order;
 - for uint8 input the 1/255 scale folds onto the first conv's kernel
   (`conv(x/255, w) == conv(x, w/255)`), as the JAX `_FirstPixelConv`
-  does; its space-to-depth rewrite is a TPU-only reshaping of the same
-  sum, so the port runs the plain 8x8/4 VALID conv;
+  does, in the kernel's dtype with 1/255 rounded to it (a bf16 kernel of
+  the bf16 train step is scaled in bf16, as JAX's weakly typed constant
+  is; `_pixel_scaled`); its space-to-depth rewrite is a TPU-only
+  reshaping of the same sum, so the port runs the plain 8x8/4 VALID conv;
 - flax's SAME max-pool 3x3/2 pads low = total // 2 and high the rest
   with -inf (84 -> 42: (0, 1); 21 -> 11: (1, 1)); torch's `padding=1`
   pads both sides and shifts the windows by one at even sizes, with the
@@ -75,6 +77,12 @@ def init_dense_(layer: nn.Module, generator: Optional[torch.Generator]) -> None:
     w = layer.weight
     lecun_normal_(w, w[0].numel(), generator)
     nn.init.zeros_(layer.bias)
+
+
+def _pixel_scaled(weight: torch.Tensor) -> torch.Tensor:
+    """The first conv's kernel times 1/255, the constant rounded to the
+    kernel's dtype (module docstring)."""
+    return weight * torch.tensor(1.0 / 255.0, dtype=weight.dtype)
 
 
 def _conv(
@@ -159,7 +167,7 @@ class AtariShallowTorso(nn.Module):
     def _first_conv(self, x: torch.Tensor) -> torch.Tensor:
         w0 = self.Conv_0.weight
         if x.dtype == torch.uint8:
-            w0 = w0 * (1.0 / 255.0)
+            w0 = _pixel_scaled(w0)
         # NHWC -> NCHW as a view: the strides stay channels-last.
         h = x.permute(0, 3, 1, 2).to(self.dtype)
         return F.relu(_conv(h, w0, self.Conv_0.bias, 4, self.dtype))
@@ -294,7 +302,7 @@ class AtariDeepTorso(nn.Module):
         w = conv.weight
         if i == 0:
             if h.dtype == torch.uint8:
-                w = w * (1.0 / 255.0)
+                w = _pixel_scaled(w)
             # NHWC -> NCHW as a view: the strides stay channels-last.
             h = h.permute(0, 3, 1, 2).to(self.dtype)
         return max_pool_same(_conv(h, w, conv.bias, 1, self.dtype, padding=1))

@@ -85,9 +85,18 @@ def _apply(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tenso
     return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
 
 
+def _layer_norm_f32(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """flax LayerNorm on the f32 input: f32 statistics and f32 scale and
+    bias, whatever the params' dtype (bf16 ones are cast up, as flax
+    promotes them)."""
+    return F.layer_norm(
+        x.float(), ln.normalized_shape, ln.weight.float(), ln.bias.float(), ln.eps
+    )
+
+
 def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Statistics on the f32 input, output in the compute dtype."""
-    return ln(x.float()).to(dtype)
+    return _layer_norm_f32(ln, x).to(dtype)
 
 
 def einsum_attention(q, k, v, mask) -> torch.Tensor:
@@ -237,7 +246,7 @@ class TransformerCore(nn.Module):
             new_k.append(k_ctx[:, -W:].float())
             new_v.append(v_ctx[:, -W:].float())
 
-        out = self.ln_out(x.float())
+        out = _layer_norm_f32(self.ln_out, x)
         new_state = TransformerCoreState(
             k_cache=torch.stack(new_k, dim=1),
             v_cache=torch.stack(new_v, dim=1),

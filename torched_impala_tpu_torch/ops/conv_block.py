@@ -56,11 +56,14 @@ def block_reference(x, k1, b1, k2, b2):
 
 def block_forward(x, k1, b1, k2, b2):
     """The block on the tensors' device: the CUDA kernel for CUDA tensors,
-    `block_reference` for CPU tensors."""
+    `block_reference` for CPU tensors. The kernel reads f32 params: bf16
+    ones (the bf16 train step's) are cast up first, exactly; the kernel
+    rounds them to x's dtype again as it stages them, so the result is
+    the launch on their f32 copies."""
     if x.is_cuda:
         from torched_impala_tpu_torch.ops import conv_block_cuda
 
-        return conv_block_cuda.resblock_cuda(x, k1, b1, k2, b2)
+        return conv_block_cuda.resblock_cuda(x, k1.float(), b1.float(), k2.float(), b2.float())
     if x.device.type == "cpu":
         return block_reference(x, k1, b1, k2, b2)
     raise ValueError(f"fused_residual_block: no implementation for device {x.device}")
@@ -127,6 +130,8 @@ def fused_residual_block(x, k1, b1, k2, b2):
     """relu -> conv3x3 SAME -> relu -> conv3x3 SAME -> +skip, fused.
 
     x `[N, H, W, C]` in the block's compute dtype (f32 or bf16); k1, k2
-    `[3, 3, C, C]` and b1, b2 `[C]` float32 params. Returns x's shape and
-    dtype."""
+    `[3, 3, C, C]` and b1, b2 `[C]` params, float32, or bf16 in the bf16
+    train step. Returns x's shape and dtype; the backward returns each
+    gradient in its input's dtype (bf16 params get rounded grads, as
+    JAX's `_block_bwd` casts them)."""
     return _ResidualBlock.apply(x, k1, b1, k2, b2)

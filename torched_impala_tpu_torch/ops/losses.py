@@ -39,9 +39,13 @@ class ImpalaLossConfig:
     # V-trace and the loss sums in one kernel (ops/fused_loss.py).
     fused_epilogue: bool = False
     # Not ported yet (ROADMAP.md queue 1, "The learner step's launches,
-    # then the rest of the learner"): True raises, and so does
-    # a train_dtype other than float32.
+    # then the rest of the learner"): True raises.
     health_diagnostics: bool = False
+    # The train step's compute dtype (the learner's, through
+    # configs.make_learner_config). The unfused loss ignores it: its
+    # inputs are the float32 heads' outputs. With fused_epilogue it would
+    # select the [T, B, A] phase's dtype, where only float32 is ported
+    # (ops/fused_loss.py raises for bfloat16).
     train_dtype: str = "float32"
 
 
@@ -167,12 +171,6 @@ def impala_loss(
             discounts=discounts,
             mask=mask,
             config=config,
-        )
-    if config.train_dtype != "float32":
-        raise NotImplementedError(
-            f"train_dtype={config.train_dtype!r} is not ported yet "
-            "(ROADMAP.md queue 1, \"The learner step's launches, then the rest "
-            "of the learner\")"
         )
     if mask is None:
         mask = torch.ones_like(rewards)

@@ -9,7 +9,7 @@ train mode with fake envs only).
     python -m torched_impala_tpu_torch.run --config breakout --fake-envs \\
         --actor-mode thread --num-actors 4 --envs-per-actor 8 \\
         --total-steps 100 [--fused-conv] [--grad-accum G] [--remat-torso] \\
-        [--device cpu]
+        [--train-dtype bfloat16] [--device cpu]
     python -m torched_impala_tpu_torch.run --config pong_transformer \\
         --fake-envs --actor-mode thread --num-actors 4 --envs-per-actor 8 \\
         --total-steps 100 [--fused-epilogue] [--device cpu]
@@ -24,6 +24,11 @@ train mode with fake envs only).
     python -m torched_impala_tpu_torch.run --config pong --fake-envs \\
         --total-steps 1000 --checkpoint-dir DIR --async-checkpoint \\
         --checkpoint-interval 100 [--resume] [--chaos-plan PLAN.json]
+
+`--train-dtype bfloat16` runs the whole train step in bf16 on params
+lowered from the f32 masters (grads and optimizer state stay f32), after
+a greedy-action gate against the f32 agent on the run's device; when the
+gate fails the run warns and trains in float32.
 
 `--grad-accum G` sums the grads of G microbatches of B/G before each
 optimizer step and `--remat-torso` runs the torso's forward again in the
@@ -82,6 +87,7 @@ CPU_EXAMPLE = (
     "--device cpu"
 )
 BREAKOUT_CPU_EXAMPLE = CPU_EXAMPLE.replace("--config pong", "--config breakout")
+BREAKOUT_BF16_CPU_EXAMPLE = BREAKOUT_CPU_EXAMPLE + " --train-dtype bfloat16"
 # Save with the async checkpointer, then resume to a later target; `{dir}`
 # is the checkpoint directory.
 RESUME_CPU_EXAMPLE = (
@@ -153,6 +159,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--transformer-dtype", choices=("float32", "bfloat16"),
                    default=None,
                    help="the transformer core's matmul compute dtype")
+    p.add_argument("--train-dtype", choices=("float32", "bfloat16"),
+                   default=None,
+                   help="the train step's compute dtype: bfloat16 lowers the "
+                   "f32 master params to bf16 inside the differentiated step "
+                   "(grads, optimizer state and master params stay f32), "
+                   "gated by greedy-action parity with f32")
     p.add_argument("--dp", type=int, default=None,
                    help="shard the learner batch over N devices (-1 = all); "
                    "more than one raises (not ported)")
@@ -200,6 +212,7 @@ def build_config(args: argparse.Namespace) -> configs.ExperimentConfig:
         "fused_conv": args.fused_conv or None,
         "fused_epilogue": args.fused_epilogue or None,
         "transformer_dtype": args.transformer_dtype,
+        "train_dtype": args.train_dtype,
         "remat_torso": args.remat_torso or None,
         "steps_per_dispatch": args.steps_per_dispatch,
         "dp_devices": args.dp,
@@ -223,6 +236,18 @@ def main(argv=None) -> int:
     cfg = build_config(args)
     device = resolve_device(args.device)
     configs.resolve_dp_devices(cfg.dp_devices, device)
+    if cfg.train_dtype != "float32":
+        # JAX's train-side gate: a half dtype whose greedy actions differ
+        # from f32 on the probe is refused, and the run trains in f32.
+        ok, mismatches = configs.check_train_dtype_parity(cfg, device, seed=args.seed)
+        if not ok:
+            print(
+                f"warning: --train-dtype {cfg.train_dtype} refused — greedy-action "
+                f"parity gate failed ({mismatches} probe actions differ from f32); "
+                "falling back to float32",
+                file=sys.stderr,
+            )
+            cfg = dataclasses.replace(cfg, train_dtype="float32")
     interval = (
         args.checkpoint_interval
         if args.checkpoint_interval is not None

@@ -54,11 +54,23 @@ and hands (slot, event) back to the batcher, which releases the slot once
 the event has completed, without waiting for it; on the CPU the step
 reads the slot itself (no staging clone) and hands it back when it
 returns.
+
+With `train_dtype="bfloat16"` (JAX's full-bf16 step) each `_grads`
+lowers the f32 master params with `ops/precision.py:cast_to_compute`
+and runs the unroll, the loss and the backward on them, bound into the
+learner's own copy of the net (`models/nets.py:bound_params`; the actors
+clone the agent's net, which is never rebound). The grads land on the
+f32 masters with JAX's rounding: bf16-rounded for every param but the
+LSTM cell's (`ImpalaNet.straight_through_params`), so the clip, RMSProp,
+`grad_accum`, `steps_per_dispatch` and the ring see float32 as before.
+The torso runs in bf16 (`configs.make_agent` forces it), the heads and
+the LSTM core in float32 on the rounded values.
 """
 
 from __future__ import annotations
 
 import collections
+import copy
 import dataclasses
 import queue
 import sys
@@ -71,6 +83,7 @@ import numpy as np
 import torch
 
 from torched_impala_tpu_torch.models.agent import Agent
+from torched_impala_tpu_torch.models.nets import bound_params
 from torched_impala_tpu_torch.ops import precision
 from torched_impala_tpu_torch.ops.losses import (
     SUM_REDUCED_LOG_KEYS,
@@ -133,6 +146,11 @@ class LearnerConfig:
     # replay, which the port has not yet (ROADMAP.md queue 1: Feed-path and
     # layout options; Replay): add both refusals when they land.
     donate_batch: bool = False
+    # The train step's compute dtype (JAX's full-bf16 step): "bfloat16"
+    # lowers the f32 master params to bf16 inside the differentiated
+    # closure (module docstring); the grads, the RMSProp moments and the
+    # master params stay float32. "float32" is the plain step.
+    train_dtype: str = "float32"
 
 
 def stack_trajectories(trajs: list[Trajectory], out: Optional[Trajectory] = None) -> Trajectory:
@@ -267,8 +285,17 @@ class Learner:
             raise ValueError(
                 f"batch_size {config.batch_size} not divisible by grad_accum {G}"
             )
+        precision.validate_compute_dtype("train_step", config.train_dtype)
         agent.net.to(self._device)
         self._params = dict(agent.net.named_parameters())
+        # The bf16 step's net: private module objects over the master
+        # params (the memo shares them, no copy), rebound to the lowered
+        # masters around each `_grads` (module docstring).
+        self._train_cast = None
+        if config.train_dtype != "float32":
+            self._train_cast = getattr(torch, config.train_dtype)
+            self._train_net = copy.deepcopy(agent.net, {id(p): p for p in self._params.values()})
+            self._straight_through = frozenset(agent.net.straight_through_params())
         optimizer.init(self._params)
         precision.assert_f32_accumulators(
             {
@@ -523,9 +550,20 @@ class Learner:
         """Unroll, loss and `torch.autograd.grad` on one (micro)batch: the
         grads in the params' order and the loss's device-scalar logs. The
         graph is freed on return."""
+        if self._train_cast is None:
+            return self._grads_on(self._agent.net, arrays)
+        lowered = precision.cast_to_compute(
+            self._params, self._train_cast, self._straight_through
+        )
+        # Bound through the backward too: a rematerialized torso runs its
+        # forward again there.
+        with bound_params(self._train_net, lowered):
+            return self._grads_on(self._train_net, arrays)
+
+    def _grads_on(self, net, arrays: tuple) -> tuple[list[torch.Tensor], dict]:
         obs, first, actions, behaviour_logits, rewards, cont, state = arrays
         cfg = self._config
-        net_out, _ = self._agent.unroll(obs, first, state)
+        net_out, _ = net(obs, first, state, unroll=True)
         values = net_out.values[..., 0]  # [T+1, B]
         out = impala_loss(
             target_logits=net_out.policy_logits[:-1],
