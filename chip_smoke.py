@@ -217,6 +217,28 @@ non-zero (no phase's failure is caught):
    = 1344 at 32x32x16, 16x16x32 and 8x8x32, and each N the actors' waves
    gave it), at the bf16 gate of phase 5.
 
+18. health: the training-health plane. (a) The BREAKOUT preset with the
+   fused blocks and `health_diagnostics`, one train step with the fused
+   loss and one with the separate loss from the same seed-0 params on a
+   fixed batch (non-zero LSTM start states, cuDNN deterministic): the
+   same 23 `health_*` keys, each within 1e-4 relative + 1e-5 absolute of
+   the other; V-trace, the fused loss's forward and its backward one
+   launch each in the fused step, V-trace one in the separate one. (b)
+   The fused step's diagnostic V-trace launch held to its plain version
+   on the step's own input (1e-5). (c) The train step alone on a fixed
+   batch, health off and on, for Breakout (fused blocks) on the fused
+   loss and Pong on the separate loss, through
+   `compare_builds.train_step_numbers` (as that script times a parent
+   tree): events ms, device-busy ms and kernels a step, and the kernels
+   health on adds by name; health on must launch no fewer of any kernel.
+   (d) `run.py --config pong --fake-envs --health --total-steps 10
+   --log-every 1` (the preset's 32 worker processes): the registry holds
+   every `health/*` gauge of the Pong net (`expected_health_gauges`),
+   each finite; then the same with a `crash_learner` plan at step 3 must
+   raise ChaosError and leave exactly one `*_crash` bundle whose
+   `postmortem.json`, `flight_tail.json` (a valid Chrome trace) and
+   `snapshots.jsonl` load.
+
 Then, whether the phases passed or failed, every process the run started
 is stopped: the pools' forkserver and resource tracker (they outlive the
 pools), then any descendant still alive after 5 s, which fails the run.
@@ -2663,6 +2685,184 @@ def phase_pong_transformer(device):
     return launches
 
 
+# The health phase: the `--health` run's steps, each logged, so the
+# staleness correlation has its 8 samples; the crash run's learner crash.
+HEALTH_RUN_STEPS = 10
+HEALTH_CRASH_AT = 3
+# Fused against unfused health logs on one step: the loss's keys agree far
+# closer (both take log_rhos and vs from the V-trace kernel); the grad
+# norms and update ratios carry the two losses' grads.
+HEALTH_RTOL, HEALTH_ATOL = 1e-4, 1e-5
+
+
+def health_step(cfg, device, batch, fused):
+    """One health-on train step of `cfg` (seed 0) on `batch` with the fused
+    or the separate loss, cuDNN deterministic: its float logs, its
+    launches, and the V-trace kernel's captured input."""
+    import torch
+
+    from torched_impala_tpu_torch import configs
+    from torched_impala_tpu_torch.ops import vtrace_cuda
+    from torched_impala_tpu_torch.runtime.learner import Learner
+
+    cfg = dataclasses.replace(cfg, fused_epilogue=fused)
+    learner = Learner(agent=configs.make_agent(cfg, seed=0), optimizer=configs.make_optimizer(cfg),
+                      config=configs.make_learner_config(cfg), device=device)
+    vtraces = CaptureInputs(vtrace_cuda, "vtrace_cuda", lambda a, kw: tuple(kw["log_rhos"].shape))
+    torch.backends.cudnn.deterministic = True
+    try:
+        zero_launches()
+        with vtraces:
+            logs = learner.train_step(batch)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return {k: float(v) for k, v in logs.items()}, read_launches(), vtraces
+
+
+def phase_health(device, smi):
+    """The training-health plane on the card (module docstring, phase 18):
+    (a) one health-on step of the Breakout preset (fused blocks) with the
+    fused loss against one with the separate loss, from the same params on
+    a fixed batch; (b) the fused step's diagnostic V-trace launch against
+    its plain version on the step's own input; (c) the train step's
+    kernels with health off and on, Breakout on the fused loss and Pong on
+    the separate one (`compare_builds.train_step_numbers`, as it times the
+    parent's tree); (d) `run.py --config pong --fake-envs --health`: every
+    health gauge of the Pong net in the registry, finite; then the same
+    with a `crash_learner` plan: ChaosError and exactly one crash bundle,
+    each of its three files loading."""
+    import tempfile
+
+    import torch
+
+    from torched_impala_tpu_torch import configs, run
+    from torched_impala_tpu_torch.ops import compare_builds, vtrace_cuda
+    from torched_impala_tpu_torch.ops.vtrace import vtrace_reference
+    from torched_impala_tpu_torch.resilience import ChaosError
+    from torched_impala_tpu_torch.telemetry import get_registry, health, validate_chrome_trace
+
+    failures = []
+    marks = [time.monotonic()]
+    # (a) and (b).
+    cfg = dataclasses.replace(configs.BREAKOUT, fused_conv=True, health_diagnostics=True)
+    T, B = cfg.unroll_length, cfg.batch_size
+    rng = np.random.default_rng(9)
+    start = tuple(
+        torch.from_numpy(rng.normal(size=(B, cfg.lstm_size)).astype(np.float32) * 0.5).to(device)
+        for _ in range(2)
+    )
+    batch = fixed_batch(cfg, device, start)
+    fused_logs, fused_launches, vtraces = health_step(cfg, device, batch, fused=True)
+    sep_logs, sep_launches, _ = health_step(cfg, device, batch, fused=False)
+    keys = sorted(k for k in sep_logs if k.startswith("health_"))
+    if sorted(k for k in fused_logs if k.startswith("health_")) != keys or len(keys) != 15 + 2 * 4:
+        failures.append(f"health keys: fused {sorted(fused_logs)}, separate {keys}")
+    diffs = {k: abs(fused_logs[k] - sep_logs[k]) for k in keys if k in fused_logs}
+    off = {k: d for k, d in diffs.items() if not d <= HEALTH_ATOL + HEALTH_RTOL * abs(sep_logs[k])}
+    if off or not all(math.isfinite(v) for v in fused_logs.values()):
+        failures.append(f"fused vs separate health logs past the gate: {off}")
+    if (fused_launches["vtrace"], fused_launches["fused_loss_fwd"],
+            fused_launches["fused_loss_bwd"], sep_launches["vtrace"]) != (1, 1, 1, 1):
+        failures.append(f"launches: fused {fused_launches}, separate {sep_launches}")
+    _, kwargs = vtraces.captured[(T, B)]
+    out, ref = vtrace_cuda.vtrace_cuda(**kwargs), vtrace_reference(**kwargs)
+    vtrace_err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
+    if not vtrace_err <= 1e-5:
+        failures.append(f"diagnostic V-trace vs plain {vtrace_err}")
+
+    # (c): the step's kernels, health off and on, timed as compare_builds
+    # times each tree's.
+    marks.append(time.monotonic())
+    step_line, added = {}, {}
+    for name, preset in (
+        ("breakout_fused_loss", compare_builds.train_presets()["breakout_fused_loss"]),
+        ("pong", configs.PONG),
+    ):
+        by_name = {}
+        for flag in ("off", "on"):
+            numbers = compare_builds.train_step_numbers(
+                dataclasses.replace(preset, health_diagnostics=flag == "on"), device)
+            step_line[f"{name}_health_{flag}"] = {
+                k: numbers[k] for k in ("events_ms", "device_busy_ms", "kernels")}
+            by_name[flag] = {k: n for k, (n, _) in numbers["kernels_by_name"].items()}
+        diff = {k: by_name["on"].get(k, 0) - by_name["off"].get(k, 0)
+                for k in by_name["on"].keys() | by_name["off"].keys()}
+        added[name] = {k: d for k, d in diff.items() if d}
+        if any(d < 0 for d in diff.values()):
+            failures.append(f"{name}: health on launches fewer of {added[name]}")
+
+    # (d): run.py --health, then a crash_learner plan.
+    marks.append(time.monotonic())
+    names = [k for k, _ in configs.make_agent(configs.PONG, seed=0).net.named_parameters()]
+    expected = expected_health_gauges(names)
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--config", "pong", "--fake-envs", "--health", "--total-steps",
+                str(HEALTH_RUN_STEPS), "--log-every", "1"]
+        zero_launches()
+        t0 = time.monotonic()
+        run.main(argv + ["--postmortem-dir", os.path.join(tmp, "run")])
+        run_s = time.monotonic() - t0
+        run_launches = read_launches()
+        snap = get_registry().snapshot()
+        gauges = {k[len("telemetry/"):]: v for k, v in snap.items()
+                  if k.startswith("telemetry/health/")}
+        if not expected <= set(gauges) or not all(math.isfinite(gauges[k]) for k in expected):
+            failures.append(f"--health gauges {gauges}, expected {sorted(expected)}")
+        if run_launches["vtrace"] < HEALTH_RUN_STEPS:
+            failures.append(f"--health run: {run_launches['vtrace']} vtrace launches")
+        run_bundles = sorted(os.listdir(os.path.join(tmp, "run"))) if os.path.isdir(
+            os.path.join(tmp, "run")) else []
+        plan = os.path.join(tmp, "plan.json")
+        with open(plan, "w") as f:
+            json.dump([{"kind": "crash_learner", "at": HEALTH_CRASH_AT}], f)
+        crash_dir = os.path.join(tmp, "crash")
+        crashed = None
+        try:
+            run.main(argv + ["--postmortem-dir", crash_dir, "--chaos-plan", plan])
+        except ChaosError as e:
+            crashed = repr(e)
+        bundles = sorted(os.listdir(crash_dir)) if os.path.isdir(crash_dir) else []
+        loaded = {}
+        if crashed is None or len(bundles) != 1 or not bundles[0].endswith("_crash"):
+            failures.append(f"crash run: error {crashed}, bundles {bundles}")
+        else:
+            path = os.path.join(crash_dir, bundles[0])
+            with open(os.path.join(path, health.BUNDLE_MANIFEST)) as f:
+                manifest = json.load(f)
+            with open(os.path.join(path, health.BUNDLE_TRACE)) as f:
+                trace_problems = validate_chrome_trace(json.load(f))
+            with open(os.path.join(path, health.BUNDLE_SNAPSHOTS)) as f:
+                rows = [json.loads(line) for line in f]
+            loaded = {"files": sorted(os.listdir(path)), "reason": manifest["reason"],
+                      "counters": manifest["counters"], "trace_problems": trace_problems,
+                      "snapshot_rows": len(rows)}
+            if (loaded["files"] != sorted([health.BUNDLE_MANIFEST, health.BUNDLE_TRACE,
+                                            health.BUNDLE_SNAPSHOTS])
+                    or manifest["reason"] != "crash" or trace_problems or not rows):
+                failures.append(f"crash bundle {loaded}")
+    marks.append(time.monotonic())
+    emit({
+        "phase": "health",
+        "card": smi,
+        "seconds_by_part": dict(zip(("a_b", "c", "d"), np.diff(marks).tolist())),
+        "fused_vs_separate_max_abs_diff": max(diffs.values()) if diffs else None,
+        "fused_vs_separate_abs_diff": diffs,
+        "step_launches": {"fused": fused_launches, "separate": sep_launches},
+        "diagnostic_vtrace_max_abs_err": vtrace_err,
+        "train_step": step_line,
+        "health_on_added_kernels_by_name": added,
+        "health_run_s": run_s,
+        "health_run_launches": run_launches,
+        "health_gauges": gauges,
+        "health_run_bundles": run_bundles,
+        "crash_run": {"error": crashed, "bundles": bundles, **loaded},
+        "failures": failures,
+    })
+    if failures:
+        raise AssertionError(f"health: {failures}")
+
+
 # The resume phase. Run 1's fault plan: one env worker killed (the 60th
 # pool-site event: a lockstep step of either pool), actor 0 raised at an
 # unroll start, the third save (step 12) corrupted, the learner crashed
@@ -3080,6 +3280,24 @@ def phase_resume(device, smi):
     return numbers
 
 
+def expected_health_gauges(param_names) -> set:
+    """The `health/*` gauges a `--health` run of a net with these param
+    names publishes once its staleness correlation has 8 samples: the
+    loss's diagnostics, each param group's grad norm and update ratio,
+    the grad-spike ratio and the staleness correlation."""
+    from torched_impala_tpu_torch.ops.losses import HEALTH_LOGRHO_EDGES
+    from torched_impala_tpu_torch.runtime.learner import health_param_groups
+
+    groups = health_param_groups(param_names)
+    return {f"health/{k}" for k in (
+        "clip_rho_frac", "clip_c_frac", "clip_logrho_mean", "clip_logrho_std",
+        *(f"clip_logrho_bin{i}" for i in range(len(HEALTH_LOGRHO_EDGES) + 1)),
+        "entropy_mean", "kl_behaviour_learner", "ev_value",
+        *(f"{kind}_{g}" for kind in ("grad_norm", "update_ratio") for g in groups),
+        "grad_spike_ratio", "staleness_clip_corr",
+    )}
+
+
 def stop_children() -> None:
     """Stop every process this run started: the env pools' forkserver and
     resource tracker (they outlive the pools), then wait up to 5 s for
@@ -3155,6 +3373,7 @@ def run_phases():
     phase_breakout_superbatch(device)
     phase_procgen(device, smi)
     transformer_launches = phase_pong_transformer(device)
+    phase_health(device, smi)
     for name in ("fused_loss_fwd", "fused_loss_bwd", "attention_fwd", "attention_bwd"):
         launches[name] = transformer_launches[name]
     # No preset reaches the general kernels' shapes: their main-path count

@@ -123,15 +123,32 @@ def test_loss_parts_match_jax():
     )
 
 
-@pytest.mark.parametrize("flag", ["fused_epilogue", "health_diagnostics"])
+@pytest.mark.parametrize("flag", ["fused_epilogue"])
 def test_unported_options_raise(flag):
-    """The fused epilogue is ported in float32; its bf16 cube phase and
-    the health diagnostics are not."""
+    """The fused epilogue is ported in float32; its bf16 cube phase is
+    not."""
     x = {k: torch.from_numpy(v) for k, v in _inputs(3).items()}
     options = {
         "fused_epilogue": dict(fused_epilogue=True, train_dtype="bfloat16"),
-        "health_diagnostics": dict(health_diagnostics=True),
     }
     cfg = port_losses.ImpalaLossConfig(**options[flag])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_losses.impala_loss(**x, config=cfg)
+
+
+def test_health_diagnostics_match_jax():
+    """health_diagnostics=True adds JAX's health_* logs to the separate
+    loss (tests/test_torch_port_health.py holds the rest of the plane)."""
+    x = _inputs(3)
+    want = jax_losses.impala_loss(
+        **{k: jnp.asarray(v) for k, v in x.items()},
+        config=jax_losses.ImpalaLossConfig(health_diagnostics=True, vtrace_implementation="scan"),
+    )
+    got = port_losses.impala_loss(
+        **{k: torch.from_numpy(v) for k, v in x.items()},
+        config=port_losses.ImpalaLossConfig(health_diagnostics=True),
+    )
+    assert set(got.logs) == set(want.logs)
+    assert sum(k.startswith("health_") for k in got.logs) == 15
+    for key, value in want.logs.items():
+        np.testing.assert_allclose(float(got.logs[key]), float(value), **TOL, err_msg=key)

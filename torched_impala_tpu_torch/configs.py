@@ -121,6 +121,13 @@ class ExperimentConfig:
     checkpoint_interval: int = 1000
     checkpoint_keep: int = 3
     checkpoint_seconds: float = 0.0
+    # The training-health plane (`run.py --health`, `--postmortem-dir`):
+    # `health_diagnostics` adds the health_* logs to the loss and the
+    # learner step (ops/losses.py, runtime/learner.py) and stands up the
+    # HealthMonitor -> burn-rate health alerts -> postmortem-bundle chain
+    # (telemetry/health.py); bundles land under `postmortem_dir`.
+    health_diagnostics: bool = False
+    postmortem_dir: str = "postmortems"
     # Devices the learner batch is sharded over: 0 = one device, -1 = every
     # visible device, N = N devices; `resolve_dp_devices` refuses more
     # than one.
@@ -392,6 +399,7 @@ def make_learner_config(cfg: ExperimentConfig) -> LearnerConfig:
             entropy_coef=cfg.entropy_coef,
             reduction=cfg.loss_reduction,
             fused_epilogue=cfg.fused_epilogue,
+            health_diagnostics=cfg.health_diagnostics,
             train_dtype=cfg.train_dtype,
         ),
         max_grad_norm=cfg.max_grad_norm,

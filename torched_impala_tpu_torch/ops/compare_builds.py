@@ -27,7 +27,8 @@ must have the same ones. Both are read through this tree's
   LOSS_SHAPES: device µs with every kernel summed, kernels a call, the
   fused-loss kernels' own device µs, and events ms;
 - `Learner.train_step` on a fixed batch for each of `train_presets()`:
-  Pong, Breakout unfused and with `fused_conv`, and pong_transformer
+  Pong, Breakout unfused, with `fused_conv` and with the fused loss too,
+  and pong_transformer
   (with `fused_epilogue=True` and the attention kernels): events ms
   (median of 20 steps), device-busy ms and kernels a step (10 steps),
   and each kernel's launches and device µs a step by name
@@ -163,14 +164,17 @@ def attention_calls(device) -> dict:
 
 def train_presets() -> dict:
     """name -> config of each train step timed: Pong, Breakout with its
-    preset's unfused blocks and with `fused_conv`, and pong_transformer
-    with `fused_epilogue` and the attention kernels."""
+    preset's unfused blocks, with `fused_conv`, and with `fused_conv` and
+    `fused_epilogue`, and pong_transformer with `fused_epilogue` and the
+    attention kernels."""
     from torched_impala_tpu_torch import configs
 
     return {
         "pong": configs.PONG,
         "breakout_unfused": configs.BREAKOUT,
         "breakout_fused": dataclasses.replace(configs.BREAKOUT, fused_conv=True),
+        "breakout_fused_loss": dataclasses.replace(
+            configs.BREAKOUT, fused_conv=True, fused_epilogue=True),
         "pong_transformer": dataclasses.replace(
             configs.PONG_TRANSFORMER, fused_epilogue=True, transformer_dense_kernel="kernel"),
     }
@@ -202,14 +206,15 @@ def train_step_numbers(cfg, device) -> dict:
     step = lambda: learner.train_step(batch)  # noqa: E731
     for _ in range(3):
         step()
-    profiling = _profiling()
-    busy_us, step_kernels = profiling.device_us(step, calls=STEP_CALLS)
+    # One profiled window: the step's device-busy time and kernels are
+    # the sums of its rows by name.
+    by_name = _profiling().kernels_by_name(step, calls=STEP_CALLS)
     return dict(
         events_ms=_events_ms(step, iters=STEP_EVENTS, warmup=0),
-        device_busy_ms=busy_us / 1e3,
-        kernels=step_kernels,
+        device_busy_ms=sum(us for _, us in by_name.values()) / 1e3,
+        kernels=sum(n for n, _ in by_name.values()),
         params=len(learner.params),
-        kernels_by_name=profiling.kernels_by_name(step, calls=STEP_CALLS),
+        kernels_by_name=by_name,
     )
 
 

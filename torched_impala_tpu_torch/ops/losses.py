@@ -7,19 +7,21 @@ summed (or averaged) over the `[T, B]` unroll with a validity mask, where
 device (`ops/vtrace.py:vtrace`): the CUDA kernel on the card, the plain
 version on the CPU. `fused_epilogue=True` routes to the fused path
 (`ops/fused_loss.py:fused_vtrace_loss`, same contract and logs). Every
-reduction is float32 (ops/precision.py).
+reduction is float32 (ops/precision.py). `health_diagnostics=True` adds
+the training-health logs (`health_diagnostics_logs`) on either path.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Mapping, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from torched_impala_tpu_torch.ops.fused_loss import fused_vtrace_loss
-from torched_impala_tpu_torch.ops.vtrace import vtrace
+from torched_impala_tpu_torch.ops.vtrace import threshold, vtrace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,8 +40,10 @@ class ImpalaLossConfig:
     reduction: str = "sum"
     # V-trace and the loss sums in one kernel (ops/fused_loss.py).
     fused_epilogue: bool = False
-    # Not ported yet (ROADMAP.md queue 1, "The learner step's launches,
-    # then the rest of the learner"): True raises.
+    # Training-health diagnostics: `health_`-prefixed scalar reductions
+    # over tensors of the loss (health_diagnostics_logs), all without
+    # gradient; telemetry/health.py republishes them as health/* gauges.
+    # False is the loss as it is without them, op for op.
     health_diagnostics: bool = False
     # The train step's compute dtype (the learner's, through
     # configs.make_learner_config). The unfused loss ignores it: its
@@ -101,6 +105,96 @@ def entropy_loss(
     return _reduce(-entropy(logits), mask, reduction)
 
 
+# Fixed log-space bin edges of the pre-clip IS-weight histogram (JAX's):
+# log(rho) in (-inf,-2), [-2,-1), [-1,-0.5), [-0.5,0), [0,0.5), [0.5,1),
+# [1,2), [2,inf). Exactly on-policy data piles into bin 4 (log rho = 0).
+HEALTH_LOGRHO_EDGES = (-2.0, -1.0, -0.5, 0.0, 0.5, 1.0, 2.0)
+
+
+def health_diagnostics_logs(
+    *,
+    learner_logits: torch.Tensor,
+    behaviour_logits: torch.Tensor,
+    log_rhos: torch.Tensor,
+    values: torch.Tensor,
+    vs: torch.Tensor,
+    mask: torch.Tensor,
+    config: ImpalaLossConfig,
+) -> dict:
+    """Training-health diagnostics (JAX `ops/losses.py:health_diagnostics_logs`):
+    masked per-step means over tensors the loss already holds, every
+    input detached, as `health_`-prefixed device scalars:
+
+      clip_rho_frac / clip_c_frac — share of valid steps whose pre-clip
+        weight exp(log_rhos) exceeds the rho / c clip threshold;
+      clip_logrho_mean / clip_logrho_std — moments of log_rhos, the std
+        as sqrt(max(E[x^2] - E[x]^2, 0));
+      clip_logrho_bin0..7 — shares in the bins lo <= x < hi of
+        HEALTH_LOGRHO_EDGES, with -inf and inf at the ends;
+      entropy_mean — entropy of the learner's policy;
+      kl_behaviour_learner — KL(mu || pi) = sum exp(log mu)(log mu - log pi);
+      ev_value — 1 - Var(vs - V) / max(Var(vs), 1e-8), both variances
+        around their masked means.
+
+    The means divide by max(sum(mask), 1). The masked sums of the first
+    pass run as one reduction over a stack of the per-step terms, then
+    the two variances as another."""
+    learner_logits, behaviour_logits, log_rhos, values, vs, mask = (
+        x.detach() for x in (learner_logits, behaviour_logits, log_rhos, values, vs, mask)
+    )
+    dtype = values.dtype
+    n = torch.clamp(torch.sum(mask), min=1.0)
+
+    def masked_mean(x):  # [K, T, B] -> [K]
+        return torch.sum((x * mask).flatten(1), dim=1) / n
+
+    rhos = torch.exp(log_rhos)
+    lo_edges = (-math.inf,) + HEALTH_LOGRHO_EDGES
+    hi_edges = HEALTH_LOGRHO_EDGES + (math.inf,)
+    # Python-scalar edges: no host-to-device copy in the step.
+    in_bin = torch.stack([(log_rhos >= lo) & (log_rhos < hi) for lo, hi in zip(lo_edges, hi_edges)])
+    log_pi = F.log_softmax(learner_logits, dim=-1)
+    log_mu = F.log_softmax(behaviour_logits, dim=-1)
+    err = vs - values
+    first = masked_mean(
+        torch.cat(
+            [
+                torch.stack(
+                    [
+                        (rhos > threshold(config.clip_rho_threshold)).to(dtype),
+                        (rhos > threshold(config.clip_c_threshold)).to(dtype),
+                        log_rhos,
+                        torch.square(log_rhos),
+                        -torch.sum(torch.exp(log_pi) * log_pi, dim=-1),
+                        torch.sum(torch.exp(log_mu) * (log_mu - log_pi), dim=-1),
+                        vs,
+                        err,
+                    ]
+                ),
+                in_bin.to(dtype),
+            ]
+        )
+    )
+    clip_rho, clip_c, logrho_mean, logrho_sq, ent, kl, vs_mean, err_mean = first[:8]
+    vs_var, err_var = masked_mean(
+        torch.square(torch.stack([vs - vs_mean, err - err_mean]))
+    )
+    logs = {
+        "health_clip_rho_frac": clip_rho,
+        "health_clip_c_frac": clip_c,
+        "health_clip_logrho_mean": logrho_mean,
+        "health_clip_logrho_std": torch.sqrt(
+            torch.clamp(logrho_sq - torch.square(logrho_mean), min=0.0)
+        ),
+    }
+    for i in range(len(lo_edges)):
+        logs[f"health_clip_logrho_bin{i}"] = first[8 + i]
+    logs["health_entropy_mean"] = ent
+    logs["health_kl_behaviour_learner"] = kl
+    logs["health_ev_value"] = 1.0 - err_var / torch.clamp(vs_var, min=1e-8)
+    return logs
+
+
 # The log keys assemble_loss emits as sums over the batch under
 # reduction="sum" (every other log is a per-step mean); the learner sums
 # these over microbatches and averages the rest (JAX ops/losses.py:223).
@@ -132,6 +226,21 @@ def assemble_loss(
     return LossOutput(total=total, logs=logs)
 
 
+def _vtrace(log_rhos, values, bootstrap_value, rewards, discounts, config):
+    """V-trace on the loss's tensors, none of them carrying gradient."""
+    return vtrace(
+        log_rhos=log_rhos.detach().contiguous(),
+        discounts=discounts.contiguous(),
+        rewards=rewards.contiguous(),
+        values=values.detach().contiguous(),
+        bootstrap_value=bootstrap_value.detach().contiguous(),
+        clip_rho_threshold=config.clip_rho_threshold,
+        clip_c_threshold=config.clip_c_threshold,
+        clip_pg_rho_threshold=config.clip_pg_rho_threshold,
+        lambda_=config.lambda_,
+    )
+
+
 def impala_loss(
     *,
     target_logits: torch.Tensor,
@@ -155,13 +264,8 @@ def impala_loss(
       rewards, discounts: `[T, B]`; discounts are `gamma * (1 - done)`.
       mask: `[T, B]` validity mask, ones by default.
     """
-    if config.health_diagnostics:
-        raise NotImplementedError(
-            "health_diagnostics is not ported yet (ROADMAP.md queue 1, "
-            "\"The learner step's launches, then the rest of the learner\")"
-        )
     if config.fused_epilogue:
-        return fused_vtrace_loss(
+        out = fused_vtrace_loss(
             target_logits=target_logits,
             behaviour_logits=behaviour_logits,
             values=values,
@@ -172,6 +276,29 @@ def impala_loss(
             mask=mask,
             config=config,
         )
+        if not config.health_diagnostics:
+            return out
+        # The fused kernel keeps no log-ratios or vs: a second V-trace
+        # pass on detached inputs recomputes them for the diagnostics (on
+        # the card it launches the V-trace kernel), as JAX's fused path
+        # does.
+        log_rhos = action_log_probs(target_logits.detach(), actions) - action_log_probs(
+            behaviour_logits, actions
+        )
+        vt = _vtrace(log_rhos, values, bootstrap_value, rewards, discounts, config)
+        logs = dict(out.logs)
+        logs.update(
+            health_diagnostics_logs(
+                learner_logits=target_logits,
+                behaviour_logits=behaviour_logits,
+                log_rhos=log_rhos,
+                values=values,
+                vs=vt.vs,
+                mask=(torch.ones_like(rewards) if mask is None else mask).to(values.dtype),
+                config=config,
+            )
+        )
+        return LossOutput(total=out.total, logs=logs)
     if mask is None:
         mask = torch.ones_like(rewards)
     mask = mask.to(values.dtype)
@@ -179,17 +306,7 @@ def impala_loss(
     log_rhos = action_log_probs(target_logits, actions) - action_log_probs(
         behaviour_logits, actions
     )
-    vt = vtrace(
-        log_rhos=log_rhos.detach().contiguous(),
-        discounts=discounts.contiguous(),
-        rewards=rewards.contiguous(),
-        values=values.detach().contiguous(),
-        bootstrap_value=bootstrap_value.detach().contiguous(),
-        clip_rho_threshold=config.clip_rho_threshold,
-        clip_c_threshold=config.clip_c_threshold,
-        clip_pg_rho_threshold=config.clip_pg_rho_threshold,
-        lambda_=config.lambda_,
-    )
+    vt = _vtrace(log_rhos, values, bootstrap_value, rewards, discounts, config)
     pg = policy_gradient_loss(
         target_logits, actions, vt.pg_advantages, mask, config.reduction
     )
@@ -200,6 +317,18 @@ def impala_loss(
         "mean_vtrace_target": torch.mean(vt.vs),
         "mean_advantage": torch.mean(vt.pg_advantages),
     }
+    if config.health_diagnostics:
+        extra.update(
+            health_diagnostics_logs(
+                learner_logits=target_logits,
+                behaviour_logits=behaviour_logits,
+                log_rhos=log_rhos,
+                values=values,
+                vs=vt.vs,
+                mask=mask,
+                config=config,
+            )
+        )
     return assemble_loss(
         pg=pg, bl=bl, ent=ent, mask=mask, config=config, extra_logs=extra
     )

@@ -81,8 +81,10 @@ class RMSProp:
         self,
         params: Mapping[str, torch.Tensor],
         grads: Mapping[str, torch.Tensor],
-    ) -> None:
-        """Update `params` in place from `grads`; advances the count."""
+    ) -> list[torch.Tensor]:
+        """Update `params` in place from `grads`; advances the count.
+        Returns the updates added, `-lr * g * rsqrt(nu + eps)` in the
+        params' order (optax's `updates`)."""
         ps = [params[k] for k in self.nu]
         gs = [grads[k] for k in self.nu]
         nus = list(self.nu.values())
@@ -98,6 +100,7 @@ class RMSProp:
         torch._foreach_add_(ps, update)
         self.last_lr = lr
         self.count += 1
+        return update
 
     def state_dict(self) -> dict:
         return {"count": self.count, "nu": {k: v.clone() for k, v in self.nu.items()}}

@@ -25,6 +25,9 @@ train mode with fake envs only).
         --total-steps 1000 --checkpoint-dir DIR --async-checkpoint \\
         --checkpoint-interval 100 [--resume] [--chaos-plan PLAN.json]
 
+    python -m torched_impala_tpu_torch.run --config pong --fake-envs \\
+        --total-steps 100 --health [--postmortem-dir DIR] [--device cpu]
+
 `--train-dtype bfloat16` runs the whole train step in bf16 on params
 lowered from the f32 masters (grads and optimizer state stay f32), after
 a greedy-action gate against the f32 agent on the run's device; when the
@@ -58,6 +61,12 @@ restores the newest checkpoint of the directory first, and
 `--total-steps` counts its steps. `--chaos-plan` injects the faults of a
 JSON plan (resilience/chaos.py), `--chaos N` crashes every env after N
 steps; the actor supervisor and the pools restart what they kill.
+
+`--health` adds the training-health logs to the train step and publishes
+them as `health/*` gauges of the telemetry registry at each log interval
+(`--log-every`), with the burn-rate health alerts over them; an alert's
+firing or a learner crash writes a postmortem bundle (`postmortem.json`,
+`flight_tail.json`, `snapshots.jsonl`) under `--postmortem-dir`.
 """
 
 from __future__ import annotations
@@ -107,6 +116,12 @@ SUPERBATCH_CPU_EXAMPLE = (
 PROCGEN_CPU_EXAMPLE = (
     "--config procgen --fake-envs --num-actors 2 --batch-size 4 --unroll-length 4 "
     "--total-steps 3 --device cpu"
+)
+# The training-health plane, every step logged (so the staleness
+# correlation has its 8 samples); `{dir}` is the postmortem directory.
+HEALTH_CPU_EXAMPLE = (
+    CPU_EXAMPLE.replace("--total-steps 3", "--total-steps 8")
+    + " --health --log-every 1 --postmortem-dir {dir}"
 )
 PONG_TRANSFORMER_CPU_EXAMPLE = (
     CPU_EXAMPLE.replace("--config pong", "--config pong_transformer")
@@ -196,6 +211,18 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--chaos-plan", default=None, metavar="PLAN.json",
                    help="fault plan: a JSON list of {kind, at, target, "
                    "duration_s} (resilience/chaos.py)")
+    p.add_argument("--health", action="store_true",
+                   help="training-health diagnostics (telemetry/health.py): "
+                   "learning-health logs in the train step (V-trace rho/c "
+                   "clip fractions and IS-weight histogram, entropy, "
+                   "behaviour->learner KL, value explained variance, "
+                   "per-group grad norms and update ratios) as health/* "
+                   "gauges, the burn-rate health alerts (entropy collapse, "
+                   "rho saturation, EV collapse, grad spike), and a "
+                   "postmortem bundle on each alert firing or learner crash")
+    p.add_argument("--postmortem-dir", default=None, metavar="DIR",
+                   help="where --health bundles land (default: the preset's "
+                   "postmortem_dir, 'postmortems')")
     return p.parse_args(argv)
 
 
@@ -216,6 +243,8 @@ def build_config(args: argparse.Namespace) -> configs.ExperimentConfig:
         "remat_torso": args.remat_torso or None,
         "steps_per_dispatch": args.steps_per_dispatch,
         "dp_devices": args.dp,
+        "health_diagnostics": args.health or None,
+        "postmortem_dir": args.postmortem_dir,
     }
     if args.superbatch_k is not None:
         overrides.update(traj_ring=True, steps_per_dispatch=args.superbatch_k, donate_batch=True)
@@ -316,6 +345,7 @@ def main(argv=None) -> int:
             config_hash=config_hash,
             chaos=chaos_plan,
             on_learner_step=mark,
+            postmortem_dir=cfg.postmortem_dir,
         )
     finally:
         if async_checkpointer is not None:

@@ -65,6 +65,16 @@ LSTM cell's (`ImpalaNet.straight_through_params`), so the clip, RMSProp,
 `grad_accum`, `steps_per_dispatch` and the ring see float32 as before.
 The torso runs in bf16 (`configs.make_agent` forces it), the heads and
 the LSTM core in float32 on the rounded values.
+
+With the loss's `health_diagnostics` each step's logs carry JAX's
+training-health keys: the loss's (ops/losses.py:health_diagnostics_logs,
+averaged over microbatches as every per-step log is) and the step's own,
+each param group's clipped grad norm and update-to-weight ratio
+(`_health_step_logs`; under K > 1 the last step's, as every log). A
+`telemetry.health.HealthMonitor` attached by `attach_health` gets each
+log interval's floats and a crash of `run`. JAX's PopArt drift keys come
+with PopArt (ROADMAP.md queue 1: DMLab-30) and its replay step's health
+logs with replay (Replay).
 """
 
 from __future__ import annotations
@@ -73,11 +83,12 @@ import collections
 import copy
 import dataclasses
 import queue
+import re
 import sys
 import threading
 import time
 import warnings
-from typing import Any, Callable, Mapping, Optional, Sequence
+from typing import Any, Callable, Mapping, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -151,6 +162,50 @@ class LearnerConfig:
     # closure (module docstring); the grads, the RMSProp moments and the
     # master params stay float32. "float32" is the plain step.
     train_dtype: str = "float32"
+
+
+class BatchLineage(NamedTuple):
+    """Provenance of one batch as the health monitor sees it (JAX's
+    `runtime/learner.py:BatchLineage`, same fields): `batch` is the
+    learner's dispatch sequence number; `lineage` and `versions` (the
+    consumed unrolls' lineage IDs and param versions) stay empty, since
+    the port's feed carries only the batch's least version; replay's
+    `reuse_count` and `staleness` keep their fresh-batch values, 1 and 0;
+    `ring_slot` is the donated ring slot, -1 for none."""
+
+    batch: int
+    lineage: tuple = ()
+    versions: tuple = ()
+    reuse_count: int = 1
+    staleness: int = 0
+    ring_slot: int = -1
+
+
+# Sanitizer of module names -> health gauge sub-keys
+# (`health/grad_norm_<group>` must satisfy the registry's NAME_RE).
+_HEALTH_GROUP_RE = re.compile(r"[^a-z0-9_]+")
+
+
+def health_param_groups(names) -> dict[str, list[int]]:
+    """The per-layer-group health gauges' groups of a net's param names:
+    one group per top-level module (the name's first component, flax's
+    top-level module name, since the port keeps flax's names), in
+    first-seen order, named as JAX's `_health_param_groups` names them
+    (lower case, runs of other characters as `_`, "group" if nothing is
+    left, `_2`, `_3`, ... on collisions); each maps to the indices of its
+    params in `names`."""
+    modules: dict[str, list[int]] = {}
+    for i, name in enumerate(names):
+        modules.setdefault(name.split(".", 1)[0], []).append(i)
+    out: dict[str, list[int]] = {}
+    for key, idx in modules.items():
+        group = _HEALTH_GROUP_RE.sub("_", key.lower()).strip("_") or "group"
+        base, n = group, 1
+        while group in out:
+            n += 1
+            group = f"{base}_{n}"
+        out[group] = idx
+    return out
 
 
 def stack_trajectories(trajs: list[Trajectory], out: Optional[Trajectory] = None) -> Trajectory:
@@ -342,6 +397,19 @@ class Learner:
                 pin_memory=self._device.type == "cuda",
                 superbatch_k=K,
             )
+        # The training-health plane: the groups of the per-group step logs
+        # (with the loss's health_diagnostics) and the monitor that
+        # `attach_health` binds (None: no monitor).
+        self._health = None
+        self._health_groups = None
+        if config.loss.health_diagnostics:
+            groups = health_param_groups(list(self._params))
+            self._health_groups = list(groups)
+            group_of = torch.empty(len(self._params), dtype=torch.long)
+            for g, idx in enumerate(groups.values()):
+                group_of[idx] = g
+            self._health_group_of = group_of.to(self._device)
+        self._batch_seq = 0
         self.param_store = ParamStore()
         self._publish()
 
@@ -619,10 +687,33 @@ class Learner:
         if cfg.max_grad_norm is not None:
             scale = torch.clamp(cfg.max_grad_norm / (grad_norm + 1e-8), max=1.0)
             grads = torch._foreach_mul(grads, scale)
-        self._optimizer.step(self._params, dict(zip(self._params, grads)))
+        updates = self._optimizer.step(self._params, dict(zip(self._params, grads)))
         logs["grad_norm_unclipped"] = grad_norm.detach()
         with torch.no_grad():
             logs["weight_norm"] = global_norm(self._params.values())
+            if self._health_groups is not None:
+                logs.update(self._health_step_logs(grads, updates))
+        return logs
+
+    def _health_step_logs(self, grads, updates) -> dict[str, torch.Tensor]:
+        """Per-group health logs of one step (JAX's `_health_step_logs`):
+        `health_grad_norm_<g>`, the global norm of group g's grads as the
+        optimizer took them (clipped), and `health_update_ratio_<g>` =
+        ||u_g|| / (||p_g|| + 1e-8), the optimizer's updates against the
+        params after the step. Every tensor's norm comes from one
+        multi-tensor norm; each group's sums of squares from one
+        `index_add_`."""
+        n = len(self._params)
+        norms = torch.stack(torch._foreach_norm([*grads, *updates, *self._params.values()]))
+        sums = torch.zeros(3, len(self._health_groups), device=norms.device, dtype=norms.dtype)
+        sums.index_add_(1, self._health_group_of, torch.square(norms).view(3, n))
+        g_norm, u_norm, p_norm = torch.sqrt(sums)
+        ratio = u_norm / (p_norm + 1e-8)
+        logs = {}
+        for i, group in enumerate(self._health_groups):
+            logs[f"health_grad_norm_{group}"] = g_norm[i]
+        for i, group in enumerate(self._health_groups):
+            logs[f"health_update_ratio_{group}"] = ratio[i]
         return logs
 
     def train_dispatch(self, arrays: tuple) -> dict[str, torch.Tensor]:
@@ -674,12 +765,15 @@ class Learner:
         K = cfg.steps_per_dispatch
         self.num_frames += K * cfg.unroll_length * cfg.batch_size
         self.num_steps += K
+        self._batch_seq += 1
         logs["num_frames"] = self.num_frames
         logs["num_steps"] = self.num_steps
         logs["param_lag_frames"] = self.num_frames - batch_version
         if crossed_interval(self.num_steps, K, cfg.publish_interval):
             self._publish()
-        if self._logger is not None and crossed_interval(self.num_steps, K, cfg.log_interval):
+        if (self._logger is not None or self._health is not None) and crossed_interval(
+            self.num_steps, K, cfg.log_interval
+        ):
             now = time.monotonic()
             if self._last_log_t is not None:
                 elapsed = max(now - self._last_log_t, 1e-9)
@@ -693,13 +787,34 @@ class Learner:
             self._last_log_t = now
             self._last_log_frames = self.num_frames
             self._wait_accum = 0.0
-            self._logger(
-                {
-                    k: float(v) if isinstance(v, torch.Tensor) else v
-                    for k, v in logs.items()
-                }
-            )
+            host_logs = {
+                k: float(v) if isinstance(v, torch.Tensor) else v for k, v in logs.items()
+            }
+            if self._logger is not None:
+                self._logger(host_logs)
+            if self._health is not None:
+                # The same floats the logger got: no device sync of its own.
+                self._health.observe(
+                    host_logs,
+                    lineage=BatchLineage(
+                        batch=self._batch_seq - 1, ring_slot=-1 if donated is None else donated
+                    ),
+                )
         return logs
+
+    def attach_health(self, monitor) -> None:
+        """Attach a `telemetry.health.HealthMonitor`: `step_once` hands it
+        each log interval's floats (the logger's) and the batch's
+        `BatchLineage`, and `run` hands it a crash. Its bundles record
+        this learner's config and counters; the port keeps no PRNG key.
+        Pair with `config.loss.health_diagnostics=True` for the step's
+        health logs; without it only the grad-spike ratio has data."""
+        self._health = monitor
+        monitor.bind_context(
+            config=self._config,
+            get_rng=None,
+            get_counters=lambda: {"num_steps": self.num_steps, "num_frames": self.num_frames},
+        )
 
     def run(
         self,
@@ -716,7 +831,9 @@ class Learner:
         after every dispatch with the learner's `num_steps`, on this thread
         (checkpoint saves, chaos, the caller's own); a hook that raises
         ends the run. `watchdog` runs whenever no batch arrives within a
-        second and should raise if the producers are dead."""
+        second and should raise if the producers are dead. With a health
+        monitor attached, an error that ends the run writes a crash bundle
+        before it propagates."""
         self.start()
         K = self._config.steps_per_dispatch
         if max_steps % K:
@@ -739,6 +856,12 @@ class Learner:
                     continue
                 for hook in post_step:
                     hook(self.num_steps)
+        except BaseException as e:
+            # A postmortem bundle before teardown (an attached monitor
+            # writes one a lifetime); the error propagates unchanged.
+            if self._health is not None:
+                self._health.on_crash(e)
+            raise
         finally:
             self.stop()
             if stop_event is not None:

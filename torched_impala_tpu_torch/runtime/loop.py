@@ -49,6 +49,12 @@ Checkpoint and resume (resilience/, utils/checkpoint.py):
   `ChaosInjector`) arms the fault hooks of the pools, the actors' unroll
   starts, the enqueue, the learner's post-step and the async
   checkpointer's writer (resilience/chaos.py).
+
+`learner_config.loss.health_diagnostics=True` stands up the
+training-health plane (telemetry/health.py): the step's health_* logs
+become `health/*` gauges of the global registry at each log interval,
+the burn-rate health alerts run over them, and an alert's firing or a
+learner crash writes a postmortem bundle under `postmortem_dir`.
 """
 
 from __future__ import annotations
@@ -72,6 +78,7 @@ from torched_impala_tpu_torch.resilience.checkpointer import AsyncCheckpointer
 from torched_impala_tpu_torch.runtime.learner import Learner, LearnerConfig
 from torched_impala_tpu_torch.runtime.supervisor import ActorSupervisor
 from torched_impala_tpu_torch.runtime.vector_actor import VectorActor
+from torched_impala_tpu_torch.telemetry import HealthMonitor, PostmortemWriter, get_registry
 from torched_impala_tpu_torch.utils.checkpoint import Checkpointer
 
 
@@ -156,6 +163,7 @@ def train(
     chaos=None,
     max_actor_restarts: Optional[int] = 10,
     on_learner_step: Optional[Callable[[int], None]] = None,
+    postmortem_dir: str = "postmortems",
 ) -> TrainResult:
     """Run the actor-learner loop until `total_steps` TOTAL learner
     updates, restored progress included: a resumed run takes only the
@@ -218,6 +226,12 @@ def train(
         logger=learner_logger,
         example_obs=example_obs,
     )
+    if learner_config.loss.health_diagnostics:
+        # Only with the step's health logs; otherwise the learner keeps no
+        # monitor and its log-interval branch is the logger's alone.
+        learner.attach_health(
+            HealthMonitor(registry=get_registry(), postmortem=PostmortemWriter(postmortem_dir))
+        )
     if resume:
         # Before any actor starts: they first see the restored params.
         _restore(
