@@ -238,6 +238,28 @@ non-zero (no phase's failure is caught):
    raise ChaosError and leave exactly one `*_crash` bundle whose
    `postmortem.json`, `flight_tail.json` (a valid Chrome trace) and
    `snapshots.jsonl` load.
+19. replay: IMPACT replay. (a) `run.py --config pong --fake-envs
+   --traj-ring --max-reuse 2 --target-update-interval 8 --total-steps 40
+   --log-every 1` (the preset's 32 worker processes, the ring in replay
+   mode, every step the replay step): the `replay/*` registry series
+   (replayed deliveries > 0, no slot retired above 2 deliveries, target
+   refreshes 1 + 40 // 8), `impact_ratio` and `impact_clip_frac` a step
+   (finite, the fraction in [0, 1]), the learner steps per env frame
+   with the frames counted at the actors' ring commits, V-trace once a
+   step and held to its plain version on the run's own input (1e-5).
+   (b) One BREAKOUT replay step (fused blocks, non-zero LSTM start
+   states) on a fixed batch, its target the seed-0 params moved by seeded
+   noise, with cuDNN's deterministic algorithms, once through the kernels
+   (V-trace 1, the LSTM cell 42 and the block 12 launches: the target's
+   unroll adds its forward's 21 and 6 to the step's) and once through
+   their plain versions (no launch), with the preset's bf16 torso and
+   with an f32 one: with the f32 torso the param steps within 1e-3
+   relative L2, the logs within 1e-4 of 1 + |log|, the clip fraction
+   equal; with the bf16 torso the kernels' step closer to the plain one
+   than the plain bf16 step is to the plain f32 step, by distance and by
+   each log (plus 1e-3 of 1 + |log|); the clip fraction strictly between
+   0 and 1; each kernel held to its plain version on the step's own
+   inputs at the gates of phases 3-5.
 
 Then, whether the phases passed or failed, every process the run started
 is stopped: the pools' forkserver and resource tracker (they outlive the
@@ -1571,9 +1593,16 @@ def drive(name, cfg, steps, device, standalone=True, at_step5=None, after=None,
 
     busy_us = profiled_wall_us = None
     if profiled:
-        t0 = time.perf_counter()
-        busy_us, _ = profiling.device_us(short_run, calls=1)
-        profiled_wall_us = (time.perf_counter() - t0) * 1e6
+        # From the start of the window that was kept (profiling takes a
+        # window again when its trace lost the warm-up launches).
+        starts = []
+
+        def timed_short_run():
+            starts.append(time.perf_counter())
+            short_run()
+
+        busy_us, _ = profiling.device_us(timed_short_run, calls=1)
+        profiled_wall_us = (time.perf_counter() - starts[-1]) * 1e6
     K = learner._config.steps_per_dispatch
     line = {
         "phase": name,
@@ -2863,6 +2892,328 @@ def phase_health(device, smi):
         raise AssertionError(f"health: {failures}")
 
 
+# The replay phase: `run.py --config pong --fake-envs --traj-ring
+# --max-reuse 2 --target-update-interval 8` for REPLAY_RUN_STEPS steps;
+# then one Breakout replay step (fused blocks) on a fixed batch.
+REPLAY_RUN_STEPS = 40
+REPLAY_TARGET_INTERVAL = 8
+# The Breakout step's target: each param plus seeded normal noise of this
+# many of its own standard deviations (tests/test_torch_port_replay.py's
+# TARGET_NOISE), so that the learner/target ratio is off 1 and the clip
+# acts on some steps.
+REPLAY_TARGET_NOISE = 0.5
+# The replay step through the kernels against the same step through their
+# plain versions on the card, from the same state and batch, with cuDNN's
+# deterministic algorithms, by the relative L2 distance of the two param
+# steps and the logs. With an f32 torso the two differ by the kernels'
+# sums in another order (V-trace 1e-5, the LSTM cell 5e-5): the step
+# within REPLAY_F32_STEP_RTOL, each log within REPLAY_F32_LOG_TOL * (1 +
+# |log|), the clip fraction equal. With the preset's bf16 torso a block
+# output may also land on the other bf16 neighbour (under 1% of them),
+# and the step moves with it through RMSProp's first step (near lr * 10 *
+# sign(grad)): there the kernels must stay closer to the plain step than
+# the bf16 torso's own plain step is to the f32 torso's, by distance and
+# by each log (plus REPLAY_BF16_LOG_TOL * (1 + |log|)), the
+# breakout_accum phase's rule.
+REPLAY_F32_STEP_RTOL = 1e-3
+REPLAY_F32_LOG_TOL = 1e-4
+REPLAY_BF16_LOG_TOL = 1e-3
+REPLAY_LOG_KEYS = ("total_loss", "pg_loss", "baseline_loss", "entropy_loss", "impact_ratio",
+                   "impact_clip_frac", "mean_vtrace_target", "mean_advantage",
+                   "grad_norm_unclipped", "weight_norm")
+
+
+class PlainKernels:
+    """While installed, the wrappers of the replay path's three kernels
+    (V-trace, the LSTM cell, the residual block) run their plain PyTorch
+    versions on the card, so one step runs once through the kernels and
+    once through the plain versions from the same state."""
+
+    def __enter__(self):
+        from torched_impala_tpu_torch.ops import conv_block, conv_block_cuda, lstm, lstm_cuda, vtrace_cuda
+        from torched_impala_tpu_torch.ops.vtrace import vtrace_reference
+
+        self._saved = [(vtrace_cuda, "vtrace_cuda", vtrace_cuda.vtrace_cuda),
+                       (lstm_cuda, "lstm_cell_cuda", lstm_cuda.lstm_cell_cuda),
+                       (conv_block_cuda, "resblock_cuda", conv_block_cuda.resblock_cuda)]
+        vtrace_cuda.vtrace_cuda = vtrace_reference
+        lstm_cuda.lstm_cell_cuda = lstm.lstm_reference
+        conv_block_cuda.resblock_cuda = conv_block.block_reference
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in self._saved:
+            setattr(module, name, fn)
+
+
+class CommitCounter:
+    """While installed, counts the columns the actors commit to any ring:
+    the env frames made, on the actors' side, are columns x T."""
+
+    def __init__(self):
+        self.columns = 0
+
+    def __enter__(self):
+        from torched_impala_tpu_torch.runtime import traj_ring
+
+        probe = self
+        commit = self._saved = traj_ring.TrajectoryRing.commit
+
+        def counting_commit(ring_self, block, param_version):
+            commit(ring_self, block, param_version)
+            probe.columns += block.cols.stop - block.cols.start
+
+        traj_ring.TrajectoryRing.commit = counting_commit
+        return self
+
+    def __exit__(self, *exc):
+        from torched_impala_tpu_torch.runtime import traj_ring
+
+        traj_ring.TrajectoryRing.commit = self._saved
+
+
+def replay_step(cfg, device, batch, plain):
+    """One replay step of `cfg` (seed-0 params) on `batch`, its target
+    pinned from the params moved off by REPLAY_TARGET_NOISE, with cuDNN's
+    deterministic algorithms, through the kernels or (`plain`) through
+    their plain versions: (params before, params after, float logs,
+    launches)."""
+    import torch
+
+    from torched_impala_tpu_torch import configs
+    from torched_impala_tpu_torch.runtime.learner import Learner
+    from torched_impala_tpu_torch.telemetry import Registry
+
+    learner = Learner(agent=configs.make_agent(cfg, seed=0), optimizer=configs.make_optimizer(cfg),
+                      config=configs.make_learner_config(cfg), device=device,
+                      example_obs=np.zeros(cfg.obs_shape, np.uint8), telemetry=Registry())
+    rng = np.random.default_rng(11)
+    target = {}
+    for k, p in learner.params.items():
+        p = p.detach()
+        scale = REPLAY_TARGET_NOISE * float(p.float().std()) if p.numel() > 1 else 0.0
+        noise = torch.from_numpy(rng.normal(size=tuple(p.shape)).astype(np.float32)).to(device)
+        target[k] = p + noise * scale
+    learner._target_store.update(target, version=0, step=0)
+    before = {k: v.detach().clone() for k, v in learner.params.items()}
+    torch.backends.cudnn.deterministic = True
+    try:
+        with PlainKernels() if plain else contextlib.nullcontext():
+            zero_launches()
+            logs = learner.train_step(batch)
+            torch.cuda.synchronize()
+            launches = read_launches()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    after = {k: v.detach().clone() for k, v in learner.params.items()}
+    return before, after, {k: float(v) for k, v in logs.items()}, launches
+
+
+def replay_step_vs_plain(cfg, device, batch, during=()):
+    """`replay_step` of `cfg` (a preset with a bf16 torso) on `batch`
+    through the kernels and through their plain versions, and the same two
+    with an f32 torso, held to the gates above. The context managers in
+    `during` are entered around the first step alone (the kernels, bf16).
+    Returns (a dict of the numbers, the failures)."""
+    with contextlib.ExitStack() as stack:
+        for manager in during:
+            stack.enter_context(manager)
+        before, kernel_after, kernel_logs, launches = replay_step(cfg, device, batch, False)
+    _, plain_after, plain_logs, plain_launches = replay_step(cfg, device, batch, True)
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    _, f32_kernel_after, f32_kernel_logs, _ = replay_step(f32, device, batch, False)
+    _, f32_plain_after, f32_plain_logs, _ = replay_step(f32, device, batch, True)
+    distances = {
+        "bf16_kernels_vs_plain": step_distance(kernel_after, plain_after, before),
+        "bf16_plain_vs_f32_plain": step_distance(plain_after, f32_plain_after, before),
+        "f32_kernels_vs_plain": step_distance(f32_kernel_after, f32_plain_after, before),
+    }
+
+    def diffs(a, b):
+        return {k: abs(a[k] - b[k]) for k in REPLAY_LOG_KEYS}
+
+    log_diffs = {
+        "bf16_kernels_vs_plain": diffs(kernel_logs, plain_logs),
+        "bf16_plain_vs_f32_plain": diffs(plain_logs, f32_plain_logs),
+        "f32_kernels_vs_plain": diffs(f32_kernel_logs, f32_plain_logs),
+    }
+    f32_off = {k: d for k, d in log_diffs["f32_kernels_vs_plain"].items()
+               if d > REPLAY_F32_LOG_TOL * (1 + abs(f32_plain_logs[k]))
+               or (k == "impact_clip_frac" and d)}
+    bf16_off = {k: d for k, d in log_diffs["bf16_kernels_vs_plain"].items()
+                if d > log_diffs["bf16_plain_vs_f32_plain"][k]
+                + REPLAY_BF16_LOG_TOL * (1 + abs(plain_logs[k]))}
+    failures = []
+    if any(plain_launches.values()):
+        failures.append(f"the plain step launched {plain_launches}")
+    if (distances["f32_kernels_vs_plain"] > REPLAY_F32_STEP_RTOL or f32_off
+            or distances["bf16_kernels_vs_plain"] >= distances["bf16_plain_vs_f32_plain"]
+            or bf16_off):
+        failures.append(f"kernels vs plain step: distances {distances}, logs past the gate: "
+                        f"f32 {f32_off}, bf16 {bf16_off}")
+    if not 0.0 < kernel_logs["impact_clip_frac"] < 1.0:
+        failures.append(f"the clip does not act on some entries: {kernel_logs['impact_clip_frac']}")
+    numbers = {
+        "launches_through_the_kernels": launches,
+        "launches_through_the_plain_versions": plain_launches,
+        "step_distances": distances,
+        "log_abs_diffs": log_diffs,
+        "impact_clip_frac": {"kernels": kernel_logs["impact_clip_frac"],
+                             "plain": plain_logs["impact_clip_frac"]},
+        "impact_ratio": kernel_logs["impact_ratio"],
+    }
+    return numbers, failures
+
+
+def phase_replay(device, smi):
+    """IMPACT replay on the card (module docstring, phase 19): (a) the
+    Pong run through `run.py` with the ring's replay mode and the replay
+    step; (b) one Breakout replay step (fused blocks) on a fixed batch
+    through the kernels against the same step through their plain
+    versions, and each kernel held to its plain version on the step's own
+    inputs."""
+    import torch
+
+    from torched_impala_tpu_torch import configs, run
+    from torched_impala_tpu_torch.ops import conv_block, conv_block_cuda, lstm, lstm_cuda, vtrace_cuda
+    from torched_impala_tpu_torch.ops.vtrace import vtrace_reference
+    from torched_impala_tpu_torch.telemetry import get_registry
+
+    failures = []
+    marks = [time.monotonic()]
+    # (a) The Pong run.
+    argv = ["--config", "pong", "--fake-envs", "--traj-ring", "--max-reuse", "2",
+            "--target-update-interval", str(REPLAY_TARGET_INTERVAL), "--total-steps",
+            str(REPLAY_RUN_STEPS), "--log-every", "1"]
+    cfg = run.build_config(run.parse_args(argv))
+    T, B = cfg.unroll_length, cfg.batch_size
+    logs = []
+    print_logger = run._print_logger
+
+    def logger(x):
+        logs.append(x)
+        print_logger(x)
+
+    vtraces = CaptureInputs(vtrace_cuda, "vtrace_cuda", lambda a, kw: tuple(kw["log_rhos"].shape))
+    commits = CommitCounter()
+    run._print_logger = logger
+    try:
+        with vtraces, commits:
+            zero_launches()
+            t0 = time.monotonic()
+            run.main(argv)
+            torch.cuda.synchronize()
+            run_s = time.monotonic() - t0
+            run_launches = read_launches()
+    finally:
+        run._print_logger = print_logger
+    snap = get_registry().snapshot()
+    series = {k[len("telemetry/"):]: v for k, v in snap.items() if k.startswith("telemetry/replay/")}
+    steps = int(logs[-1]["num_steps"]) if logs else 0
+    env_frames = commits.columns * T
+    impact = {k: [x[k] for x in logs] for k in ("impact_ratio", "impact_clip_frac")}
+    if steps != REPLAY_RUN_STEPS or len(logs) != steps:
+        failures.append(f"run: {steps} steps, {len(logs)} logs")
+    if not series.get("replay/reuse_delivered", 0) > 0:
+        failures.append(f"no replayed slot delivered: {series}")
+    if not series.get("replay/reuse_count_max", 0) <= 2:
+        failures.append(f"a slot retired above max_reuse: {series}")
+    if series.get("replay/target_updates") != 1 + steps // REPLAY_TARGET_INTERVAL:
+        failures.append(f"target_updates {series.get('replay/target_updates')}, "
+                        f"want {1 + steps // REPLAY_TARGET_INTERVAL}")
+    # The first log's rates are NaN by design, as is a return before any
+    # episode ended.
+    unset = ("frames_per_sec", "batch_wait_frac", "episode_return_mean")
+    finite = all(math.isfinite(v) for x in logs for k, v in x.items()
+                 if isinstance(v, float) and k not in unset)
+    if not finite or not all(0.0 <= v <= 1.0 for v in impact["impact_clip_frac"]):
+        failures.append(f"logs: finite {finite}, clip fractions {impact['impact_clip_frac']}")
+    if run_launches["vtrace"] != steps or vtraces.calls.get((T, B), 0) != steps:
+        failures.append(f"run: {run_launches['vtrace']} vtrace launches in {steps} steps")
+    _, kwargs = vtraces.captured[(T, B)]
+    out, ref = vtrace_cuda.vtrace_cuda(**kwargs), vtrace_reference(**kwargs)
+    run_vtrace_err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
+    if not run_vtrace_err <= 1e-5:
+        failures.append(f"run's V-trace vs plain {run_vtrace_err}")
+
+    # (b) One Breakout replay step through the kernels and through their
+    # plain versions, from the same state and fixed batch.
+    marks.append(time.monotonic())
+    bcfg = dataclasses.replace(configs.BREAKOUT, fused_conv=True, traj_ring=True, max_reuse=2,
+                               target_update_interval=REPLAY_TARGET_INTERVAL)
+    BT, BB = bcfg.unroll_length, bcfg.batch_size
+    rng = np.random.default_rng(9)
+    start = tuple(
+        torch.from_numpy(rng.normal(size=(BB, bcfg.lstm_size)).astype(np.float32) * 0.5).to(device)
+        for _ in range(2)
+    )
+    batch = fixed_batch(bcfg, device, start)
+    learner_n = (BT + 1) * BB
+    step_vtraces = CaptureInputs(vtrace_cuda, "vtrace_cuda", lambda a, kw: tuple(kw["log_rhos"].shape))
+    cells = CaptureInputs(lstm_cuda, "lstm_cell_cuda",
+                          lambda a, kw: tuple(a[0].shape) if a[0].shape[0] == BB else None)
+    blocks = CaptureInputs(conv_block_cuda, "resblock_cuda",
+                           lambda a, kw: tuple(a[0].shape) if a[0].shape[0] == learner_n else None)
+    step, step_failures = replay_step_vs_plain(bcfg, device, batch,
+                                               during=(step_vtraces, cells, blocks))
+    failures += step_failures
+    step_launches = step["launches_through_the_kernels"]
+    want = {"vtrace": 1, "lstm_cell": 2 * (BT + 1), "resblock": 2 * 6}
+    if {k: step_launches[k] for k in want} != want:
+        failures.append(f"step launches {step_launches}, want {want}")
+    errors, equal = {}, {}
+    _, kwargs = step_vtraces.captured[(BT, BB)]
+    out, ref = vtrace_cuda.vtrace_cuda(**kwargs), vtrace_reference(**kwargs)
+    errors["vtrace"] = max(float((a - b).abs().max()) for a, b in zip(out, ref))
+    for shape, (args, _) in cells.captured.items():
+        out, ref = lstm_cuda.lstm_cell_cuda(*args), lstm.lstm_reference(*args)
+        errors["lstm_cell_" + "x".join(map(str, shape))] = max(
+            float((a - b).abs().max()) for a, b in zip(out, ref))
+    for shape, (args, _) in sorted(blocks.captured.items()):
+        out, ref = conv_block_cuda.resblock_cuda(*args), conv_block.block_reference(*args)
+        key = "resblock_" + "x".join(map(str, shape))
+        if not torch.allclose(out.float(), ref.float(), rtol=BF16_ULP, atol=BF16_ULP):
+            failures.append(f"{key} past one bf16 rounding of its plain version")
+        errors[key] = float((out.float() - ref.float()).abs().max())
+        equal[key] = float((out == ref).float().mean())
+    lstm_err = max((v for k, v in errors.items() if k.startswith("lstm")), default=math.inf)
+    if (errors["vtrace"] > 1e-5 or lstm_err > LSTM_ATOL or len(cells.captured) != 1
+            or len(blocks.captured) != 3 or min(equal.values()) < 0.99):
+        failures.append(f"kernels vs plain on the step's inputs {errors}, equal {equal}")
+    marks.append(time.monotonic())
+    emit({
+        "phase": "replay",
+        "card": smi,
+        "seconds_by_part": dict(zip(("a", "b"), np.diff(marks).tolist())),
+        "run": {
+            "argv": " ".join(argv),
+            "seconds": run_s,
+            "learner_steps": steps,
+            "env_frames_committed_by_actors": env_frames,
+            "learner_steps_per_env_frame": steps / env_frames if env_frames else None,
+            "learner_frames": steps * T * B,
+            "launches": run_launches,
+            "vtrace_launches_per_step": run_launches["vtrace"] / max(steps, 1),
+            "vtrace_max_abs_err_on_the_runs_input": run_vtrace_err,
+            "replay_series": series,
+            "impact_ratio": impact["impact_ratio"],
+            "impact_clip_frac": impact["impact_clip_frac"],
+        },
+        "breakout_step": {
+            **step,
+            "kernel_calls_by_shape": {
+                "lstm_cell": {"x".join(map(str, k)): n for k, n in cells.calls.items()},
+                "resblock": {"x".join(map(str, k)): n for k, n in blocks.calls.items()},
+            },
+            "max_abs_err_on_the_steps_inputs": errors,
+            "resblock_equal_share": equal,
+        },
+        "failures": failures,
+    })
+    if failures:
+        raise AssertionError(f"replay: {failures}")
+
+
 # The resume phase. Run 1's fault plan: one env worker killed (the 60th
 # pool-site event: a lockstep step of either pool), actor 0 raised at an
 # unroll start, the third save (step 12) corrupted, the learner crashed
@@ -3374,6 +3725,7 @@ def run_phases():
     phase_procgen(device, smi)
     transformer_launches = phase_pong_transformer(device)
     phase_health(device, smi)
+    phase_replay(device, smi)
     for name in ("fused_loss_fwd", "fused_loss_bwd", "attention_fwd", "attention_bwd"):
         launches[name] = transformer_launches[name]
     # No preset reaches the general kernels' shapes: their main-path count

@@ -1157,7 +1157,7 @@ def _ring_feed_batches(device, use_ring, batches=5, T=5, E=2, B=4):
         for _ in range(batches):
             for _ in range(B // E):
                 actor.unroll_and_push()
-            arrays, version, event, donated = learner._batch_q.get(timeout=60)
+            arrays, version, event, donated, _ = learner._batch_q.get(timeout=60)
             assert donated is None  # donate_batch is off
             assert (event is not None) == use_ring
             if event is not None:
@@ -1549,6 +1549,118 @@ def test_donated_slot_is_released_only_after_its_step_event(cuda):
     assert learner.num_steps == K * dispatches
     assert all(t.is_pinned() for slot in ring._slots for t in slot.tensors[:6])
     assert ring._slots[0].tensors.obs.shape == (K, T + 1, B, 4)
+
+
+def _assert_replay_step_matches_plain(device, cfg, batch, want_launches):
+    """chip_smoke.py's `replay_step_vs_plain`: one replay step of preset
+    `cfg` through the kernels and through their plain versions on the
+    card, from the same state, with its bf16 torso and with an f32 one,
+    held to the replay phase's gates (chip_smoke.py, REPLAY_*): with the
+    f32 torso the steps within 1e-3 relative L2 and the logs within 1e-4
+    (the kernels' sums in another order); with the bf16 torso closer to
+    the plain step than the plain bf16 step is to the plain f32 one."""
+    import chip_smoke
+
+    numbers, failures = chip_smoke.replay_step_vs_plain(cfg, device, batch)
+    assert failures == []
+    launches = numbers["launches_through_the_kernels"]
+    assert {k: launches[k] for k in want_launches} == want_launches
+
+
+@pytest.mark.gpu
+def test_pong_replay_step_through_vtrace_matches_the_plain_route(cuda):
+    """One replay step of the Pong preset at full width (T = 20, B = 32, bf16
+    torso): the target's unroll, the live one, impact_loss with V-trace on
+    the kernel (one launch), against the same step with V-trace's plain
+    version, from the same state."""
+    import dataclasses
+
+    from torched_impala_tpu_torch import configs
+
+    batch = tuple(x[0] for x in _pong_superbatch(cuda, 1)[:6]) + ((),)
+    _assert_replay_step_matches_plain(
+        cuda, dataclasses.replace(configs.PONG, traj_ring=True, max_reuse=2,
+                                  target_update_interval=8),
+        batch, {"vtrace": 1, "lstm_cell": 0, "resblock": 0})
+
+
+@pytest.mark.gpu
+def test_breakout_replay_step_through_lstm_and_block_matches_the_plain_route(cuda):
+    """One replay step of the Breakout preset at full width with the fused
+    blocks and non-zero LSTM start states: the LSTM cell 42 launches (21
+    for the target's unroll, 21 for the live one), the block 12 (6 each),
+    V-trace 1, against the same step through their plain versions."""
+    import dataclasses
+
+    import numpy as np
+
+    from torched_impala_tpu_torch import configs
+
+    rng = np.random.default_rng(5)
+    T, B, A = 20, 32, 4
+
+    def dev(a):
+        return torch.from_numpy(a).to(cuda)
+
+    batch = (
+        dev(rng.integers(0, 256, size=(T + 1, B, 84, 84, 4), dtype=np.uint8)),
+        dev(rng.uniform(size=(T + 1, B)) < 0.05),
+        dev(rng.integers(0, A, size=(T, B))),
+        dev(rng.normal(size=(T, B, A)).astype(np.float32)),
+        dev((rng.uniform(size=(T, B)) < 0.05).astype(np.float32)),
+        dev(np.ones((T, B), np.float32)),
+        tuple(dev(rng.normal(size=(B, 256)).astype(np.float32) * 0.5) for _ in range(2)),
+    )
+    cfg = dataclasses.replace(configs.BREAKOUT, fused_conv=True, traj_ring=True, max_reuse=2,
+                              target_update_interval=8)
+    _assert_replay_step_matches_plain(cuda, cfg, batch,
+                                      {"vtrace": 1, "lstm_cell": 42, "resblock": 12})
+
+
+@pytest.mark.gpu
+def test_replayed_pinned_slot_copies_the_same_bytes_as_its_first_delivery(cuda):
+    """A ring slot delivered fresh, then replayed (max_reuse = 2): both
+    side-stream copies of its pinned buffers, each waited for by its own
+    event, give the same device bytes."""
+    import dataclasses
+
+    import numpy as np
+
+    from torched_impala_tpu_torch import configs
+    from torched_impala_tpu_torch.envs.fake import ScriptedEnv
+    from torched_impala_tpu_torch.runtime.learner import Learner
+    from torched_impala_tpu_torch.runtime.vector_actor import VectorActor
+    from torched_impala_tpu_torch.telemetry import Registry
+
+    T, B, E = 5, 4, 2
+    cfg = dataclasses.replace(configs.CARTPOLE, use_lstm=True, lstm_size=8, unroll_length=T,
+                              batch_size=B, traj_ring=True, max_reuse=2, target_update_interval=2)
+    agent = configs.make_agent(cfg, seed=2)
+    learner = Learner(agent=agent, optimizer=configs.make_optimizer(cfg),
+                      config=configs.make_learner_config(cfg), device=cuda,
+                      example_obs=np.zeros((4,), np.float32), telemetry=Registry())
+    ring = learner.traj_ring
+    assert ring.max_reuse == 2 and ring.num_slots == learner._batch_q.maxsize + 4
+    actor = VectorActor(actor_id=0, envs=[ScriptedEnv(episode_len=4) for _ in range(E)],
+                        agent=agent, param_store=learner.param_store, enqueue=learner.enqueue,
+                        unroll_length=T, device=cuda, seed=3, traj_ring=ring)
+    for _ in range(B // E):
+        actor.unroll_and_push()
+    learner.start()
+    items = []
+    try:
+        for _ in range(2):
+            arrays, version, event, donated, (reuse, staleness) = learner._batch_q.get(timeout=60)
+            event.synchronize()
+            items.append(([t.cpu() for t in (*arrays[:6], *arrays[6])], reuse, staleness))
+    finally:
+        learner.stop()
+        learner.join()
+    (fresh, r1, _), (replayed, r2, _) = items
+    assert (r1, r2) == (1, 2)
+    for a, b in zip(fresh, replayed):
+        assert torch.equal(a, b)
+    assert all(t.is_pinned() for slot in ring._slots for t in slot.tensors[:6])
 
 
 def test_wrappers_refuse_cpu_tensors():

@@ -120,8 +120,9 @@ def test_unported_paths_raise():
         )
     ring = dict(num_slots=2, unroll_length=2, batch_size=2,
                 example_obs=np.zeros((4,), np.float32), num_actions=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1: Replay"):
-        TrajectoryRing(**ring, max_reuse=2)
+    # Replay is ported; JAX's refusal of superbatch slots with it stays.
+    with pytest.raises(ValueError, match="superbatch slots cannot be replayed"):
+        TrajectoryRing(**ring, max_reuse=2, superbatch_k=2)
     # Superbatch slots are ported: K = 2 slots of K*B columns.
     superbatch = TrajectoryRing(**ring, superbatch_k=2)
     assert superbatch.total_cols == 4

@@ -148,7 +148,7 @@ def _drain(use_ring, use_lstm, batches=3, T=5, E=2, B=4):
         for _ in range(batches):
             for _ in range(B // E):
                 actor.unroll_and_push()
-            arrays, version, event, donated = learner._batch_q.get(timeout=60)
+            arrays, version, event, donated, _ = learner._batch_q.get(timeout=60)
             assert donated is None  # donate_batch is off
             assert event is None  # no side stream on the CPU
             out.append((arrays, version))

@@ -26,6 +26,7 @@ from torched_impala_tpu_torch.optim import (
     join_schedules,
     linear_schedule,
 )
+from torched_impala_tpu_torch.replay import ReplayConfig
 from torched_impala_tpu_torch.runtime.learner import LearnerConfig
 
 
@@ -89,6 +90,16 @@ class ExperimentConfig:
     # Actors write unrolls straight into the learner's batch slots
     # (runtime/traj_ring.py); env counts must divide batch_size.
     traj_ring: bool = False
+    # IMPACT replay (torched_impala_tpu_torch/replay/): train on each ring
+    # slot up to `max_reuse` times with the clipped target-network
+    # surrogate. max_reuse > 1 requires traj_ring=True and
+    # target_update_interval >= 1 (ReplayConfig.validate); the defaults
+    # keep replay off and the learner's step as it is without it.
+    max_reuse: int = 1
+    replay_mix: float = 1.0
+    replay_staleness_frames: int = 0
+    target_update_interval: int = 0
+    target_clip_epsilon: float = 0.2
     unroll_length: int = 20
     batch_size: int = 8
     # K SGD steps a dispatch on a [K, T+1, B, ...] superbatch (the
@@ -390,6 +401,15 @@ def check_train_dtype_parity(
 
 
 def make_learner_config(cfg: ExperimentConfig) -> LearnerConfig:
+    replay = None
+    if cfg.max_reuse > 1 or cfg.target_update_interval > 0:
+        replay = ReplayConfig(
+            max_reuse=cfg.max_reuse,
+            replay_mix=cfg.replay_mix,
+            staleness_frames=cfg.replay_staleness_frames,
+            target_update_interval=cfg.target_update_interval,
+            target_clip_epsilon=cfg.target_clip_epsilon,
+        )
     return LearnerConfig(
         batch_size=cfg.batch_size,
         unroll_length=cfg.unroll_length,
@@ -407,6 +427,7 @@ def make_learner_config(cfg: ExperimentConfig) -> LearnerConfig:
         steps_per_dispatch=cfg.steps_per_dispatch,
         donate_batch=cfg.donate_batch,
         train_dtype=cfg.train_dtype,
+        replay=replay,
     )
 
 

@@ -9,6 +9,10 @@ version on the CPU. `fused_epilogue=True` routes to the fused path
 (`ops/fused_loss.py:fused_vtrace_loss`, same contract and logs). Every
 reduction is float32 (ops/precision.py). `health_diagnostics=True` adds
 the training-health logs (`health_diagnostics_logs`) on either path.
+
+`impact_loss` is replay's loss (IMPACT's clipped-target surrogate): it
+always takes the separate path, whatever `fused_epilogue` says, as JAX's
+replay step does.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from torched_impala_tpu_torch.ops.fused_loss import fused_vtrace_loss
-from torched_impala_tpu_torch.ops.vtrace import threshold, vtrace
+from torched_impala_tpu_torch.ops.vtrace import clipped_surrogate, threshold, vtrace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -321,6 +325,89 @@ def impala_loss(
         extra.update(
             health_diagnostics_logs(
                 learner_logits=target_logits,
+                behaviour_logits=behaviour_logits,
+                log_rhos=log_rhos,
+                values=values,
+                vs=vt.vs,
+                mask=mask,
+                config=config,
+            )
+        )
+    return assemble_loss(
+        pg=pg, bl=bl, ent=ent, mask=mask, config=config, extra_logs=extra
+    )
+
+
+def impact_loss(
+    *,
+    learner_logits: torch.Tensor,
+    target_logits: torch.Tensor,
+    behaviour_logits: torch.Tensor,
+    values: torch.Tensor,
+    bootstrap_value: torch.Tensor,
+    actions: torch.Tensor,
+    rewards: torch.Tensor,
+    discounts: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    clip_epsilon: float = 0.2,
+    config: ImpalaLossConfig = ImpalaLossConfig(),
+) -> LossOutput:
+    """IMPACT's clipped-target surrogate loss (arXiv:1912.00167; JAX
+    `ops/losses.py:impact_loss`), time-major. Three policies: mu, the
+    behaviour policy (the actors' logits); pi_target, the pinned target
+    network (replay/target_store.py), held constant; pi_theta, the live
+    learner policy.
+
+    V-trace's corrections (rho, c and the pg advantage) take pi_target /
+    mu, through `vtrace` (the CUDA kernel on the card); the optimized term
+    is the clipped surrogate on r = pi_theta / pi_target
+    (`ops.vtrace.clipped_surrogate`). The baseline and entropy terms are
+    `impala_loss`'s: the live values regress onto the target-policy
+    V-trace targets, and the entropy is the live policy's. At r = 1 the
+    gradients equal `impala_loss`'s, the values do not (the surrogate's
+    value is sum(A_t)), so the learner without replay keeps
+    `impala_loss`. `fused_epilogue` is not read: this loss has no fused
+    path.
+
+    Args:
+      learner_logits: `[T, B, A]` live-policy logits (carry gradient).
+      target_logits: `[T, B, A]` target logits; detached here.
+      behaviour_logits, values, bootstrap_value, actions, rewards,
+      discounts, mask: as in `impala_loss`.
+      clip_epsilon: the clip radius (ReplayConfig.target_clip_epsilon).
+
+    The logs add `impact_ratio` (the mean learner/target ratio over the
+    valid steps) and `impact_clip_frac` (the share of valid steps where
+    |r - 1| > epsilon) to `impala_loss`'s; with `health_diagnostics` the
+    health logs take the target's log-ratios against mu and the live
+    policy."""
+    if mask is None:
+        mask = torch.ones_like(rewards)
+    mask = mask.to(values.dtype)
+
+    target_logits = target_logits.detach()
+    target_lp = action_log_probs(target_logits, actions)
+    log_rhos = target_lp - action_log_probs(behaviour_logits, actions)
+    vt = _vtrace(log_rhos, values, bootstrap_value, rewards, discounts, config)
+
+    log_ratio = action_log_probs(learner_logits, actions) - target_lp
+    surrogate, ratio = clipped_surrogate(log_ratio, vt.pg_advantages, clip_epsilon)
+    pg = _reduce(-surrogate, mask, config.reduction)
+    bl = baseline_loss(vt.vs - values, mask, config.reduction)
+    ent = entropy_loss(learner_logits, mask, config.reduction)
+    ratio = ratio.detach()
+    n_valid = torch.clamp(torch.sum(mask), min=1.0)
+    clipped = torch.abs(ratio - 1.0) > clip_epsilon
+    extra = {
+        "mean_vtrace_target": torch.mean(vt.vs),
+        "mean_advantage": torch.mean(vt.pg_advantages),
+        "impact_ratio": torch.sum(ratio * mask) / n_valid,
+        "impact_clip_frac": torch.sum(clipped * mask) / n_valid,
+    }
+    if config.health_diagnostics:
+        extra.update(
+            health_diagnostics_logs(
+                learner_logits=learner_logits,
                 behaviour_logits=behaviour_logits,
                 log_rhos=log_rhos,
                 values=values,

@@ -11,6 +11,8 @@ Counterpart of `torched_impala_tpu/ops/vtrace.py`:
 the same operation order as the JAX `vtrace_scan`). `vtrace` dispatches
 on where the tensors lie: a CPU tensor takes the plain version, a CUDA
 tensor the hand-written kernel of `ops/vtrace_cuda.py`.
+`clipped_surrogate` is IMPACT's clipped objective (ops/losses.py:
+impact_loss).
 """
 
 from __future__ import annotations
@@ -33,6 +35,31 @@ class VTraceOutput(NamedTuple):
 def threshold(x: Optional[float]) -> float:
     """A clip threshold as a float: None disables clipping (inf)."""
     return math.inf if x is None else float(x)
+
+
+def clipped_surrogate(
+    log_ratio: torch.Tensor, advantages: torch.Tensor, clip_epsilon: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """PPO-style clipped surrogate, the IMPACT objective's core
+    (arXiv:1912.00167 eq. 2; JAX `ops/vtrace.py:clipped_surrogate`):
+
+        surrogate_t = min(r_t * A_t, clip(r_t, 1-eps, 1+eps) * A_t)
+        r_t = pi_learner(a_t|x_t) / pi_target(a_t|x_t)
+
+    `log_ratio` `[T, B]` carries the gradient through the learner's
+    log-probs; the advantages `[T, B]` are targets and carry none. The
+    clip is `minimum(maximum(r, lo), hi)`, as `jnp.clip` differentiates:
+    at an exact bound it passes half the gradient (a tie of `maximum` or
+    `minimum` splits it evenly), where `torch.clamp` would pass all of it.
+    Returns (surrogate, ratio), both `[T, B]`; the loss negates the
+    surrogate."""
+    advantages = advantages.detach()
+    ratio = torch.exp(log_ratio)
+    clipped = torch.minimum(
+        torch.maximum(ratio, torch.full_like(ratio, 1.0 - clip_epsilon)),
+        torch.full_like(ratio, 1.0 + clip_epsilon),
+    )
+    return torch.minimum(ratio * advantages, clipped * advantages), ratio
 
 
 @torch.no_grad()

@@ -28,6 +28,10 @@ train mode with fake envs only).
     python -m torched_impala_tpu_torch.run --config pong --fake-envs \\
         --total-steps 100 --health [--postmortem-dir DIR] [--device cpu]
 
+    python -m torched_impala_tpu_torch.run --config pong --fake-envs \\
+        --total-steps 100 --traj-ring --max-reuse 2 \\
+        --target-update-interval 8 [--device cpu]
+
 `--train-dtype bfloat16` runs the whole train step in bf16 on params
 lowered from the f32 masters (grads and optimizer state stay f32), after
 a greedy-action gate against the f32 agent on the run's device; when the
@@ -67,6 +71,12 @@ them as `health/*` gauges of the telemetry registry at each log interval
 (`--log-every`), with the burn-rate health alerts over them; an alert's
 firing or a learner crash writes a postmortem bundle (`postmortem.json`,
 `flight_tail.json`, `snapshots.jsonl`) under `--postmortem-dir`.
+
+`--max-reuse N` (with `--traj-ring` and `--target-update-interval`)
+turns on IMPACT-style replay: the ring delivers each unroll up to N
+times, and every learner step takes the clipped surrogate against a
+target network refreshed every `--target-update-interval` steps. The
+done line's `steps` and `frames` count every delivery, replays too.
 """
 
 from __future__ import annotations
@@ -117,6 +127,12 @@ PROCGEN_CPU_EXAMPLE = (
     "--config procgen --fake-envs --num-actors 2 --batch-size 4 --unroll-length 4 "
     "--total-steps 3 --device cpu"
 )
+# IMPACT replay on the ring: each slot delivered up to twice, the target
+# refreshed every 2 steps.
+REPLAY_CPU_EXAMPLE = (
+    CPU_EXAMPLE.replace("--total-steps 3", "--total-steps 6")
+    + " --traj-ring --max-reuse 2 --target-update-interval 2"
+)
 # The training-health plane, every step logged (so the staleness
 # correlation has its 8 samples); `{dir}` is the postmortem directory.
 HEALTH_CPU_EXAMPLE = (
@@ -143,6 +159,29 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--traj-ring", action="store_true",
                    help="actors write unrolls straight into the learner's "
                    "batch slots (runtime/traj_ring.py)")
+    p.add_argument("--max-reuse", type=int, default=None,
+                   help="replay: deliver each committed unroll up to N "
+                        "times from the trajectory ring before recycling "
+                        "its slot (IMPACT-style circular replay; needs "
+                        "--traj-ring and --target-update-interval; "
+                        "torched_impala_tpu_torch/replay/)")
+    p.add_argument("--replay-mix", type=float, default=None,
+                   help="replay: cap on the replayed fraction of delivered "
+                        "batches (0 < f <= 1; fresh batches always take "
+                        "priority regardless)")
+    p.add_argument("--replay-staleness-frames", type=int, default=None,
+                   help="replay: expire retained unrolls once the learner "
+                        "frame watermark moves more than N frames past "
+                        "their oldest transition (0 = no bound)")
+    p.add_argument("--target-update-interval", type=int, default=None,
+                   help="replay: refresh the on-device target-policy "
+                        "snapshot every N learner steps (the clipped "
+                        "surrogate anchors to it; required when "
+                        "--max-reuse > 1)")
+    p.add_argument("--target-clip-epsilon", type=float, default=None,
+                   help="replay: PPO-style clip radius for the "
+                        "learner/target policy ratio in the surrogate "
+                        "loss (default 0.2)")
     p.add_argument("--num-actors", type=int, default=None)
     p.add_argument("--envs-per-actor", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None)
@@ -232,6 +271,11 @@ def build_config(args: argparse.Namespace) -> configs.ExperimentConfig:
         "pool_mode": args.pool_mode,
         "pool_ready_fraction": args.pool_ready_fraction,
         "traj_ring": args.traj_ring or None,
+        "max_reuse": args.max_reuse,
+        "replay_mix": args.replay_mix,
+        "replay_staleness_frames": args.replay_staleness_frames,
+        "target_update_interval": args.target_update_interval,
+        "target_clip_epsilon": args.target_clip_epsilon,
         "num_actors": args.num_actors,
         "envs_per_actor": args.envs_per_actor,
         "batch_size": args.batch_size,

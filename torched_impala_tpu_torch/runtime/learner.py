@@ -73,8 +73,20 @@ each param group's clipped grad norm and update-to-weight ratio
 (`_health_step_logs`; under K > 1 the last step's, as every log). A
 `telemetry.health.HealthMonitor` attached by `attach_health` gets each
 log interval's floats and a crash of `run`. JAX's PopArt drift keys come
-with PopArt (ROADMAP.md queue 1: DMLab-30) and its replay step's health
-logs with replay (Replay).
+with PopArt (ROADMAP.md queue 1: DMLab-30).
+
+With `replay` (IMPACT-style replay, torched_impala_tpu_torch/replay/) the
+ring retains released slots and delivers them again, and every step is
+the replay step (JAX's `_train_step_replay_impl` without PopArt): under
+`torch.no_grad()` the net bound to the pinned target params
+(`TargetParamStore`, refreshed every `target_update_interval` steps)
+unrolls the same batch from the same start state, then the live unroll,
+`impact_loss` (whatever `fused_epilogue` says, as JAX's replay step),
+the grads, the clip and RMSProp as above. After each step the ring's
+frame watermark and the target's cadence advance (`note_version`,
+`maybe_update`); `num_frames` counts every delivery, replays too, as
+JAX's does. JAX's PopArt replay loss (`popart_impact_loss`) comes with
+PopArt (ROADMAP.md queue 1: DMLab-30).
 """
 
 from __future__ import annotations
@@ -99,9 +111,11 @@ from torched_impala_tpu_torch.ops import precision
 from torched_impala_tpu_torch.ops.losses import (
     SUM_REDUCED_LOG_KEYS,
     ImpalaLossConfig,
+    impact_loss,
     impala_loss,
 )
 from torched_impala_tpu_torch.optim import RMSProp
+from torched_impala_tpu_torch.replay import ReplayConfig, TargetParamStore
 from torched_impala_tpu_torch.runtime.param_store import ParamStore
 from torched_impala_tpu_torch.runtime.traj_ring import TrajectoryRing
 from torched_impala_tpu_torch.runtime.types import (
@@ -110,6 +124,7 @@ from torched_impala_tpu_torch.runtime.types import (
     crossed_interval,
     map_state,
 )
+from torched_impala_tpu_torch.telemetry.registry import Registry, get_registry
 from torched_impala_tpu_torch.utils.checkpoint import validate_restored_shapes
 
 
@@ -153,15 +168,23 @@ class LearnerConfig:
     # step that consumed it (module docstring); the ring gets two more slots
     # for the longer hold. On the queue feed the device batch already
     # belongs to the step, and this changes nothing. Results are bit for
-    # bit those without it. JAX also refuses it with data_device and with
-    # replay, which the port has not yet (ROADMAP.md queue 1: Feed-path and
-    # layout options; Replay): add both refusals when they land.
+    # bit those without it. Refused with replay (a retained slot's contents
+    # must outlive the step). JAX also refuses it with data_device, which
+    # the port has not yet (ROADMAP.md queue 1: Feed-path and layout
+    # options): add that refusal when it lands.
     donate_batch: bool = False
     # The train step's compute dtype (JAX's full-bf16 step): "bfloat16"
     # lowers the f32 master params to bf16 inside the differentiated
     # closure (module docstring); the grads, the RMSProp moments and the
     # master params stay float32. "float32" is the plain step.
     train_dtype: str = "float32"
+    # IMPACT-style replay (module docstring; replay/config.py): the ring
+    # delivers each slot up to max_reuse times and every step takes the
+    # clipped-target surrogate against a pinned target network. Needs
+    # traj_ring and grad_accum == 1; refuses steps_per_dispatch > 1 and
+    # donate_batch. A disabled config (max_reuse 1, no target interval)
+    # is None: the step without replay, bit for bit.
+    replay: Optional[ReplayConfig] = None
 
 
 class BatchLineage(NamedTuple):
@@ -169,9 +192,9 @@ class BatchLineage(NamedTuple):
     `runtime/learner.py:BatchLineage`, same fields): `batch` is the
     learner's dispatch sequence number; `lineage` and `versions` (the
     consumed unrolls' lineage IDs and param versions) stay empty, since
-    the port's feed carries only the batch's least version; replay's
-    `reuse_count` and `staleness` keep their fresh-batch values, 1 and 0;
-    `ring_slot` is the donated ring slot, -1 for none."""
+    the port's feed carries only the batch's least version; `reuse_count`
+    and `staleness` are the delivered ring slot's (replay; 1 and 0 for a
+    fresh batch); `ring_slot` is the donated ring slot, -1 for none."""
 
     batch: int
     lineage: tuple = ()
@@ -322,9 +345,11 @@ class Learner:
         device: torch.device,
         logger: Optional[Callable[[Mapping[str, Any]], None]] = None,
         example_obs: Optional[np.ndarray] = None,
+        telemetry: Optional[Registry] = None,
     ) -> None:
         """`example_obs` (one observation) shapes the trajectory ring's
-        slots; it is needed only with `config.traj_ring`."""
+        slots; it is needed only with `config.traj_ring`. `telemetry` takes
+        replay's `replay/*` series (the global registry by default)."""
         self._agent = agent
         self._optimizer = optimizer
         self._config = config
@@ -341,15 +366,48 @@ class Learner:
                 f"batch_size {config.batch_size} not divisible by grad_accum {G}"
             )
         precision.validate_compute_dtype("train_step", config.train_dtype)
+        # Replay, checked before the ring is built (JAX's refusals). A
+        # disabled config is None from here on: the step without replay.
+        rp = config.replay
+        if rp is not None:
+            rp.validate()
+        self._replay: Optional[ReplayConfig] = rp if rp is not None and rp.enabled else None
+        if self._replay is not None:
+            if not config.traj_ring:
+                raise ValueError(
+                    "replay requires traj_ring=True: the trajectory ring "
+                    "IS the circular replay buffer"
+                )
+            if G != 1:
+                raise ValueError(
+                    "replay requires grad_accum=1 (the surrogate step "
+                    "has no microbatch scan)"
+                )
+            if K > 1:
+                raise ValueError(
+                    "traj_ring superbatch (steps_per_dispatch > 1) does "
+                    "not compose with replay: a retained slot cannot be "
+                    "re-delivered column-by-column across K sub-batches"
+                )
+            if config.donate_batch:
+                raise ValueError(
+                    "donate_batch does not compose with replay: a "
+                    "retained slot's contents must survive the step for "
+                    "re-delivery"
+                )
+        replaying = self._replay is not None and self._replay.max_reuse > 1
+        reg = telemetry if telemetry is not None else get_registry()
         agent.net.to(self._device)
         self._params = dict(agent.net.named_parameters())
-        # The bf16 step's net: private module objects over the master
-        # params (the memo shares them, no copy), rebound to the lowered
-        # masters around each `_grads` (module docstring).
+        # The learner's own net: private module objects over the master
+        # params (the memo shares them, no copy). The bf16 step rebinds it
+        # to the lowered masters around each `_grads`, the replay step to
+        # the target params for the target's unroll (module docstring).
         self._train_cast = None
+        if config.train_dtype != "float32" or self._replay is not None:
+            self._train_net = copy.deepcopy(agent.net, {id(p): p for p in self._params.values()})
         if config.train_dtype != "float32":
             self._train_cast = getattr(torch, config.train_dtype)
-            self._train_net = copy.deepcopy(agent.net, {id(p): p for p in self._params.values()})
             self._straight_through = frozenset(agent.net.straight_through_params())
         optimizer.init(self._params)
         precision.assert_f32_accumulators(
@@ -381,14 +439,18 @@ class Learner:
         self._consumed: collections.deque = collections.deque()
         self._consumed_lock = threading.Lock()
         # The ring: the device queue's depth in slots in flight, one
-        # filling and one spare, and two more under donate_batch, whose
-        # slots are held through their step (JAX's count).
+        # filling and one spare, two more under donate_batch, whose slots
+        # are held through their step, and two more for replay's retained
+        # slots (JAX's count).
         self.traj_ring: Optional[TrajectoryRing] = None
         if config.traj_ring:
             if example_obs is None:
                 raise ValueError("traj_ring needs example_obs to shape its slots")
             self.traj_ring = TrajectoryRing(
-                num_slots=self._batch_q.maxsize + 2 + (2 if config.donate_batch else 0),
+                num_slots=self._batch_q.maxsize
+                + 2
+                + (2 if replaying else 0)
+                + (2 if config.donate_batch else 0),
                 unroll_length=config.unroll_length,
                 batch_size=config.batch_size,
                 example_obs=example_obs,
@@ -396,6 +458,11 @@ class Learner:
                 agent_state_example=agent.initial_state(1),
                 pin_memory=self._device.type == "cuda",
                 superbatch_k=K,
+                max_reuse=self._replay.max_reuse if replaying else 1,
+                replay_mix=self._replay.replay_mix if replaying else 1.0,
+                staleness_frames=self._replay.staleness_frames if replaying else 0,
+                sampler_seed=self._replay.sampler_seed if replaying else 0,
+                telemetry=reg,
             )
         # The training-health plane: the groups of the per-group step logs
         # (with the loss's health_diagnostics) and the monitor that
@@ -412,6 +479,17 @@ class Learner:
         self._batch_seq = 0
         self.param_store = ParamStore()
         self._publish()
+        # The target network: a copy of the initial params on the device,
+        # so the first step has a target.
+        self._target_store: Optional[TargetParamStore] = None
+        if self._replay is not None:
+            self._target_store = TargetParamStore(
+                self.param_store,
+                update_interval=self._replay.target_update_interval,
+                max_lag_frames=self._replay.target_max_lag_frames,
+                telemetry=reg,
+            )
+            self._target_store.update(self._params, version=0, step=0)
 
     # ---- feeding -------------------------------------------------------
 
@@ -496,7 +574,7 @@ class Learner:
                     batch = self._assemble_superbatch(K)
                 if batch is None:
                     return
-                if not self._push((self._to_device(batch), batch.param_version, None, None)):
+                if not self._push((self._to_device(batch), batch.param_version, None, None, (1, 0))):
                     return
         except BaseException as e:  # noqa: BLE001 - surfaced via step_once
             self.error = e
@@ -524,7 +602,11 @@ class Learner:
         fourth element) and comes back from `step_once` once the step that
         consumed it has been queued; each pass releases the slots handed
         back whose events have completed (`_release_consumed`), never
-        waiting for one. On the CPU the batch is the slot itself."""
+        waiting for one. On the CPU the batch is the slot itself.
+
+        A replayed slot goes the same way as a fresh one: copied again from
+        its pinned buffers, released after the event. The queue item's
+        fifth element is the slot's (reuse_count, staleness)."""
         ring = self.traj_ring
         cuda = self._device.type == "cuda"
         donate = self._config.donate_batch
@@ -556,7 +638,9 @@ class Learner:
             if donate:
                 self._release_consumed()
             donated = view.slot if view is not None and donate else None
-            if view is not None and not self._push((arrays, view.param_version, event, donated)):
+            if view is not None and not self._push(
+                (arrays, view.param_version, event, donated, (view.reuse_count, view.staleness))
+            ):
                 return
 
     def _hand_back(self, slot: int, consumed: Optional[torch.cuda.Event]) -> None:
@@ -617,24 +701,40 @@ class Learner:
     def _grads(self, arrays: tuple) -> tuple[list[torch.Tensor], dict]:
         """Unroll, loss and `torch.autograd.grad` on one (micro)batch: the
         grads in the params' order and the loss's device-scalar logs. The
-        graph is freed on return."""
+        graph is freed on return. With replay, the target's unroll first,
+        then the live one into `impact_loss`."""
+        target_logits = None if self._target_store is None else self._target_logits(arrays)
         if self._train_cast is None:
-            return self._grads_on(self._agent.net, arrays)
+            return self._grads_on(self._agent.net, arrays, target_logits)
         lowered = precision.cast_to_compute(
             self._params, self._train_cast, self._straight_through
         )
         # Bound through the backward too: a rematerialized torso runs its
         # forward again there.
         with bound_params(self._train_net, lowered):
-            return self._grads_on(self._train_net, arrays)
+            return self._grads_on(self._train_net, arrays, target_logits)
 
-    def _grads_on(self, net, arrays: tuple) -> tuple[list[torch.Tensor], dict]:
+    def _target_logits(self, arrays: tuple) -> torch.Tensor:
+        """The pinned target's policy logits `[T, B, A]` on the batch, from
+        the batch's start state, without gradient; under a bf16 train step
+        the target params are lowered as the live ones are (JAX's replay
+        step). `current()` raises past the target's lag bound."""
+        _, target = self._target_store.current()
+        if self._train_cast is not None:
+            target = precision.cast_to_compute(target, self._train_cast, self._straight_through)
+        obs, first, _, _, _, _, state = arrays
+        with torch.no_grad(), bound_params(self._train_net, target):
+            target_out, _ = self._train_net(obs, first, state, unroll=True)
+        return target_out.policy_logits[:-1]
+
+    def _grads_on(
+        self, net, arrays: tuple, target_logits: Optional[torch.Tensor] = None
+    ) -> tuple[list[torch.Tensor], dict]:
         obs, first, actions, behaviour_logits, rewards, cont, state = arrays
         cfg = self._config
         net_out, _ = net(obs, first, state, unroll=True)
         values = net_out.values[..., 0]  # [T+1, B]
-        out = impala_loss(
-            target_logits=net_out.policy_logits[:-1],
+        batch = dict(
             behaviour_logits=behaviour_logits,
             values=values[:-1],
             bootstrap_value=values[-1],
@@ -643,6 +743,15 @@ class Learner:
             discounts=cfg.loss.discount * cont,
             config=cfg.loss,
         )
+        if target_logits is None:
+            out = impala_loss(target_logits=net_out.policy_logits[:-1], **batch)
+        else:
+            out = impact_loss(
+                learner_logits=net_out.policy_logits[:-1],
+                target_logits=target_logits,
+                clip_epsilon=self._replay.target_clip_epsilon,
+                **batch,
+            )
         grads = torch.autograd.grad(out.total, list(self._params.values()))
         return list(grads), {k: v.detach() for k, v in out.logs.items()}
 
@@ -737,7 +846,9 @@ class Learner:
             raise RuntimeError("learner batcher thread died") from self.error
         t0 = time.monotonic()
         try:
-            arrays, batch_version, copied, donated = self._batch_q.get(timeout=timeout)
+            arrays, batch_version, copied, donated, (reuse_count, staleness) = self._batch_q.get(
+                timeout=timeout
+            )
         finally:
             self._wait_accum += time.monotonic() - t0
         if copied is not None:
@@ -766,6 +877,11 @@ class Learner:
         self.num_frames += K * cfg.unroll_length * cfg.batch_size
         self.num_steps += K
         self._batch_seq += 1
+        if self._target_store is not None:
+            # The ring's staleness watermark (expires retained slots past
+            # the bound) and the target's refresh cadence.
+            self.traj_ring.note_version(self.num_frames)
+            self._target_store.maybe_update(self.num_steps, self._params, self.num_frames)
         logs["num_frames"] = self.num_frames
         logs["num_steps"] = self.num_steps
         logs["param_lag_frames"] = self.num_frames - batch_version
@@ -797,7 +913,10 @@ class Learner:
                 self._health.observe(
                     host_logs,
                     lineage=BatchLineage(
-                        batch=self._batch_seq - 1, ring_slot=-1 if donated is None else donated
+                        batch=self._batch_seq - 1,
+                        reuse_count=reuse_count,
+                        staleness=staleness,
+                        ring_slot=-1 if donated is None else donated,
                     ),
                 )
         return logs
@@ -911,7 +1030,9 @@ class Learner:
         names, shapes and float32 rule before it writes `nu`, and only then
         are the params written (`Tensor.copy_` would broadcast a wrong
         shape silently). With a trajectory ring, the slots a dead writer
-        left half committed are then discarded."""
+        left half committed are then discarded. With replay the target is
+        pinned again from the restored params: a resumed run must not clip
+        against the policy from before the restore."""
         validate_restored_shapes(state["params"], self._params, what="params")
         self._optimizer.load_state_dict(state["opt_state"])
         with torch.no_grad():
@@ -929,6 +1050,8 @@ class Learner:
                     file=sys.stderr,
                     flush=True,
                 )
+        if self._target_store is not None:
+            self._target_store.update(self._params, version=self.num_frames, step=self.num_steps)
 
     @property
     def params(self) -> dict[str, torch.Tensor]:

@@ -30,6 +30,12 @@ class ParamStore:
             self._params = snapshot
         self._published.set()
 
+    @property
+    def version(self) -> int:
+        """The latest published version (-1 before the first publish)."""
+        with self._lock:
+            return self._version
+
     def get(
         self, timeout: Optional[float] = None
     ) -> tuple[int, dict[str, torch.Tensor]]:

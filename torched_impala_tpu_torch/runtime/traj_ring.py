@@ -40,10 +40,19 @@ when all K*B columns have committed, and a delivered slot is the K-step
 dispatch's superbatch as it is: one host-to-device copy for K SGD steps.
 With K = 1 the shapes have no leading axis.
 
-Not ported here: replay (`max_reuse > 1`, ROADMAP.md queue 1: Replay)
-raises NotImplementedError. When it lands, keep JAX's refusal of
-superbatch slots with replay (a retained slot cannot be re-delivered
-across K sub-batches).
+Replay (`max_reuse > 1`, IMPACT-style, torched_impala_tpu_torch/replay/):
+a released slot with reuse budget left goes on a retained list instead
+of the free list, its generation unchanged and its contents live. When
+no fresh slot is ready, `pop_ready` draws a retained slot with a seeded
+sampler weighted 1 / (1 + staleness) (staleness: the learner's frame
+watermark from `note_version` minus the slot's acting param version),
+under the `replay_mix` cap on the share of replays; `staleness_frames`
+expires retained slots past the bound. Fresh slots always come first.
+Under free-list pressure `acquire` evicts the stalest retained slot
+rather than block an actor. A delivered slot is never on the retained
+list, so eviction never recycles buffers that a copy may still read.
+Superbatch slots cannot be replayed (JAX's refusal). With `max_reuse ==
+1` nothing of this runs and no `replay/*` series is registered.
 """
 
 from __future__ import annotations
@@ -57,6 +66,7 @@ import numpy as np
 import torch
 
 from torched_impala_tpu_torch.runtime.types import QueueClosed, Trajectory, map_state
+from torched_impala_tpu_torch.telemetry.registry import Registry, get_registry
 
 
 class RingBlock(NamedTuple):
@@ -85,17 +95,24 @@ class ReadySlot(NamedTuple):
     the train step takes it, (obs, first, actions, behaviour_logits,
     rewards, cont, agent_state), over the slot's own memory (pinned on
     the card), valid until `release(slot)`. `versions` lists the
-    committed blocks' param versions in column order."""
+    committed blocks' param versions in column order. Replay's provenance
+    (JAX's fields): `gen` is the slot's generation at delivery,
+    `reuse_count` which delivery of the slot's contents this is (1 =
+    fresh), `staleness` the learner's frame watermark minus the slot's
+    param version."""
 
     slot: int
     tensors: tuple
     param_version: int
     versions: tuple = ()
+    gen: int = 0
+    reuse_count: int = 1
+    staleness: int = 0
 
 
 class _Slot:
     __slots__ = ("tensors", "arrays", "gen", "next_col", "committed",
-                 "aborted", "blocks", "delivered")
+                 "aborted", "blocks", "reuse_count", "delivered")
 
     def __init__(self, tensors: Trajectory):
         self.tensors = tensors
@@ -109,7 +126,12 @@ class _Slot:
         self.committed = 0  # columns committed or aborted
         self.aborted = False
         self.blocks: dict = {}  # col_start -> param_version per committed block
+        self.reuse_count = 0  # deliveries of the current contents
         self.delivered = False  # being consumed by the batcher
+
+    def version(self) -> int:
+        """The least param version of the committed columns."""
+        return min(self.blocks.values())
 
 
 class TrajectoryRing:
@@ -128,20 +150,34 @@ class TrajectoryRing:
         agent_state_example: Any = (),
         pin_memory: bool = False,
         max_reuse: int = 1,
+        replay_mix: float = 1.0,
+        staleness_frames: int = 0,
+        sampler_seed: int = 0,
         superbatch_k: int = 1,
+        telemetry: Optional[Registry] = None,
     ) -> None:
-        if max_reuse != 1:
-            raise NotImplementedError(
-                f"max_reuse={max_reuse}: replaying ring slots is not ported yet "
-                "(ROADMAP.md queue 1: Replay)"
-            )
-        if superbatch_k < 1:
-            raise ValueError(f"superbatch_k must be >= 1, got {superbatch_k}")
+        """`max_reuse`, `replay_mix`, `staleness_frames` and
+        `sampler_seed` set replay (module docstring; ReplayConfig says
+        what each does); `telemetry` takes the `replay/*` series, the
+        global registry by default."""
         if num_slots < 2:
             # One slot can never overlap filling with a transfer in flight.
             raise ValueError(f"need >= 2 slots, got {num_slots}")
         if unroll_length < 1 or batch_size < 1:
             raise ValueError("unroll_length and batch_size must be >= 1")
+        if superbatch_k < 1:
+            raise ValueError(f"superbatch_k must be >= 1, got {superbatch_k}")
+        if superbatch_k > 1 and max_reuse > 1:
+            raise ValueError(
+                "superbatch slots cannot be replayed (max_reuse > 1): "
+                "the surrogate path consumes [T, B] batches"
+            )
+        if max_reuse < 1:
+            raise ValueError(f"max_reuse must be >= 1, got {max_reuse}")
+        if not (0.0 < replay_mix <= 1.0):
+            raise ValueError(f"replay_mix must be in (0, 1], got {replay_mix}")
+        if staleness_frames < 0:
+            raise ValueError(f"staleness_frames must be >= 0, got {staleness_frames}")
         obs = np.asarray(example_obs)
         T, B, K = unroll_length, batch_size, int(superbatch_k)
         self.unroll_length = T
@@ -185,6 +221,24 @@ class TrajectoryRing:
         self._closed = False
         self._cond = threading.Condition()
 
+        # Replay's state (untouched while max_reuse == 1).
+        self.max_reuse = int(max_reuse)
+        self.replay_mix = float(replay_mix)
+        self.staleness_frames = int(staleness_frames)
+        self._retained: List[int] = []  # released with reuse budget left
+        self._current_version = 0  # the learner's frame watermark
+        self._fresh_delivered = 0
+        self._replay_delivered = 0
+        self._sampler = np.random.default_rng(sampler_seed)
+        if self.max_reuse > 1:
+            # Only in replay mode: a ring without it registers nothing.
+            reg = telemetry if telemetry is not None else get_registry()
+            self._m_reuse_delivered = reg.counter("replay/reuse_delivered")
+            self._m_reuse_count = reg.histogram("replay/reuse_count")
+            self._m_evict = reg.counter("replay/evict_pressure")
+            self._m_stale_expired = reg.counter("replay/staleness_expired")
+            self._m_staleness = reg.gauge("replay/staleness_frames")
+
     # -- writer (actor) side ----------------------------------------------
 
     def acquire(self, num_cols: int) -> RingBlock:
@@ -192,7 +246,8 @@ class TrajectoryRing:
         every slot is busy (the ring's backpressure). Raises QueueClosed
         after `close()`. `num_cols` must divide `batch_size`, so a block
         never straddles two slots, nor two sub-batches of a superbatch
-        slot."""
+        slot. With no free slot but a retained one, the stalest retained
+        slot is recycled for it: actors never wait on replayed data."""
         if num_cols < 1 or self.batch_size % num_cols:
             raise ValueError(
                 f"block of {num_cols} columns must divide batch_size "
@@ -202,6 +257,8 @@ class TrajectoryRing:
             while True:
                 if self._closed:
                     raise QueueClosed()
+                if self._filling is None and not self._free and self._retained:
+                    self._evict_locked()
                 if self._filling is None and self._free:
                     self._filling = self._free.popleft()
                 if self._filling is not None:
@@ -286,40 +343,142 @@ class TrajectoryRing:
     def pop_ready(self, timeout: Optional[float] = None) -> Optional[ReadySlot]:
         """The next completed slot (views, valid until `release`); None on
         timeout or after close. The batch's param_version is the smallest
-        of its columns', as `stack_trajectories` takes it."""
+        of its columns', as `stack_trajectories` takes it. In replay mode
+        a fresh slot always comes first; with none ready the sampler may
+        deliver a retained slot again (under the `replay_mix` cap)."""
         deadline = None if timeout is None else time.monotonic() + timeout
         with self._cond:
             while True:
                 if self._ready:
-                    return self._deliver_locked(self._ready.popleft())
+                    return self._deliver_locked(self._ready.popleft(), fresh=True)
                 if self._closed:
                     return None
+                s = self._sample_replay_locked()
+                if s is not None:
+                    return self._deliver_locked(s, fresh=False)
                 budget = None if deadline is None else deadline - time.monotonic()
                 if budget is not None and budget <= 0:
                     return None
                 self._cond.wait(timeout=budget)
 
-    def _deliver_locked(self, s: int) -> ReadySlot:
+    def _deliver_locked(self, s: int, fresh: bool) -> ReadySlot:
         slot = self._slots[s]
         slot.delivered = True
+        staleness = self._staleness_locked(slot)
+        if fresh:
+            slot.reuse_count = 1
+            self._fresh_delivered += 1
+        else:
+            slot.reuse_count += 1
+            self._replay_delivered += 1
+            self._m_reuse_delivered.inc()
+            self._m_staleness.set(float(staleness))
         buf = slot.tensors
         return ReadySlot(
             slot=s,
             tensors=(buf.obs, buf.first, buf.actions, buf.behaviour_logits, buf.rewards,
                      buf.cont, buf.agent_state),
-            param_version=min(slot.blocks.values()),
+            param_version=slot.version(),
             versions=tuple(slot.blocks[c] for c in sorted(slot.blocks)),
+            gen=slot.gen,
+            reuse_count=slot.reuse_count,
+            staleness=staleness,
         )
 
     def release(self, s: int) -> None:
         """Return slot `s` to the free list (the generation bump makes any
         block still held for it stale). Call only once nothing reads its
         buffers: after its device copy completed, or after an owning host
-        copy was taken."""
+        copy was taken. In replay mode a slot with reuse budget left and
+        inside the staleness bound is retained instead, its generation and
+        contents kept for another delivery."""
         with self._cond:
-            self._slots[s].delivered = False
-            self._recycle_locked(s)
+            slot = self._slots[s]
+            slot.delivered = False
+            if (
+                self.max_reuse > 1
+                and not self._closed
+                and slot.reuse_count < self.max_reuse
+                and not self._is_stale_locked(slot)
+            ):
+                self._retained.append(s)
+            else:
+                if self.max_reuse > 1:
+                    self._m_reuse_count.observe(float(slot.reuse_count))
+                    if slot.reuse_count < self.max_reuse:
+                        # Budget was left: the staleness bound ended it.
+                        self._m_stale_expired.inc()
+                self._recycle_locked(s)
             self._cond.notify_all()
+
+    # -- replay (retain after release) --------------------------------------
+
+    def note_version(self, version: int) -> None:
+        """Advance the learner's frame watermark (its num_frames after each
+        step). Staleness is measured against it, and retained slots past
+        the staleness bound are expired at once, so the sampler never
+        draws them."""
+        with self._cond:
+            if version > self._current_version:
+                self._current_version = int(version)
+            self._expire_stale_locked()
+
+    def _staleness_locked(self, slot: _Slot) -> int:
+        return max(0, self._current_version - slot.version())
+
+    def _is_stale_locked(self, slot: _Slot) -> bool:
+        if self.staleness_frames <= 0:
+            return False
+        return self._current_version - slot.version() > self.staleness_frames
+
+    def _expire_stale_locked(self) -> None:
+        if self.staleness_frames <= 0 or not self._retained:
+            return
+        keep: List[int] = []
+        for s in self._retained:
+            if self._is_stale_locked(self._slots[s]):
+                self._m_stale_expired.inc()
+                self._m_reuse_count.observe(float(self._slots[s].reuse_count))
+                self._recycle_locked(s)
+            else:
+                keep.append(s)
+        if len(keep) < len(self._retained):
+            self._retained = keep
+            self._cond.notify_all()
+
+    def _evict_locked(self) -> None:
+        """Recycle the retained slot with the oldest acting params (on a
+        tie the most reused) so that an acquirer can go on. Only retained
+        slots are candidates: a delivered slot is never on the list."""
+        s = min(
+            self._retained,
+            key=lambda i: (self._slots[i].version(), -self._slots[i].reuse_count),
+        )
+        self._retained.remove(s)
+        self._m_evict.inc()
+        self._m_reuse_count.observe(float(self._slots[s].reuse_count))
+        self._recycle_locked(s)
+
+    def _sample_replay_locked(self) -> Optional[int]:
+        """A retained slot to deliver again, or None (replay off, nothing
+        retained, or the `replay_mix` cap binds). The weights are 1 / (1 +
+        staleness): fresher slots are preferred, never exclusively; the
+        seeded generator makes the draw JAX's, draw for draw."""
+        if self.max_reuse <= 1 or not self._retained:
+            return None
+        self._expire_stale_locked()
+        if not self._retained:
+            return None
+        if self.replay_mix < 1.0:
+            total = self._fresh_delivered + self._replay_delivered
+            if self._replay_delivered + 1 > self.replay_mix * (total + 1):
+                return None
+        staleness = np.array(
+            [self._staleness_locked(self._slots[s]) for s in self._retained], np.float64
+        )
+        w = 1.0 / (1.0 + staleness)
+        idx = int(self._sampler.choice(len(self._retained), p=w / w.sum()))
+        return self._retained.pop(idx)
 
     def release_after_transfer(self, s: int, event: Optional[torch.cuda.Event]) -> None:
         """Wait for `event` (recorded after slot `s`'s host-to-device copies
@@ -332,14 +491,14 @@ class TrajectoryRing:
 
     def discard_torn(self) -> int:
         """Recycle every torn slot (columns handed out, but the slot neither
-        complete, ready, free nor delivered: what a writer that died
-        mid-unroll without aborting leaves behind). The generation bump
+        complete, ready, free, retained nor delivered: what a writer that
+        died mid-unroll without aborting leaves behind). The generation bump
         makes a zombie writer's commit raise instead of poisoning a batch.
         Safe at any time: a quiescent ring discards nothing. Returns the
         number of slots discarded."""
         discarded = 0
         with self._cond:
-            busy = set(self._ready) | set(self._free)
+            busy = set(self._ready) | set(self._free) | set(self._retained)
             for s, slot in enumerate(self._slots):
                 if s in busy or slot.delivered:
                     continue
