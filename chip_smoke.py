@@ -260,6 +260,34 @@ non-zero (no phase's failure is caught):
    each log (plus 1e-3 of 1 + |log|); the clip fraction strictly between
    0 and 1; each kernel held to its plain version on the step's own
    inputs at the gates of phases 3-5.
+20. popart: PopArt's ops (`ops/popart.py`) at DMLab-30's shapes. (a)
+   `popart_impala_loss` (its own statistics update, and with
+   `fixed_new_state` from `popart_target_moments` and `apply_moments`)
+   and `popart_impact_loss` at T = 100, B = 32, A = 15, 30 tasks
+   (rewards at task scales 0.01 to 100, a mask with zeros, task ids
+   covering every task, statistics moved by 16 updates at step size 0.5
+   so that sigma spans at least two decades), forward and backward,
+   health off and on, once through the V-trace kernel (one launch a
+   V-trace pass) and once through its plain version on the card: every
+   log within 1e-5 relative, the gradients within 1e-5 relative L2, the
+   new statistics within 1e-6 relative, norm_bootstrap's gradient 0. (b)
+   The DMLab-30 net at full width (JAX's DMLAB30 preset with num_tasks =
+   1: deep ResNet on 72x96x3 uint8 fake pixels, LSTM(256), fused blocks,
+   then `ImpalaNet(num_values=30)`; T + 1 = 101, B = 32, episodes ending
+   inside the unroll, non-zero LSTM start states): the unroll, the task
+   column gathered as JAX's `_popart_forward` does, `popart_impala_loss`
+   and the backward, with cuDNN's deterministic algorithms, through the
+   kernels (V-trace 1, the LSTM cell 101 and the block 6 launches, the
+   block at N = 3232 on the 36x48, 18x24 and 9x12 grids) and through
+   their plain versions, bf16 and f32 torsos, at replay's gates (f32:
+   grads within 1e-3 relative L2, logs within 1e-4 of 1 + |log|; bf16:
+   closer to plain than plain bf16 is to plain f32, plus 1e-3 of a log);
+   then `rescale_params` with the loss's (old, new) pair and with (far,
+   identity): the unnormalized values within 1e-4 of their largest
+   magnitude. Each kernel held to its plain version on the step's own
+   inputs at the gates of phases 3-5 (the block also in f32 at the same
+   grids), and the block's kernel (tuned or general) and one launch's
+   device time at each grid, bf16 and f32.
 
 Then, whether the phases passed or failed, every process the run started
 is stopped: the pools' forkserver and resource tracker (they outlive the
@@ -709,9 +737,33 @@ def phase_lstm(device):
     return learner
 
 
+def library_block(x_nchw, w1, b1, w2, b2):
+    """The residual block as the cuDNN pair: relu, conv, relu, conv, skip
+    (NCHW views, OIHW kernels)."""
+    import torch.nn.functional as F
+
+    out = F.conv2d(F.relu(x_nchw), w1, b1, padding=1)
+    return x_nchw + F.conv2d(F.relu(out), w2, b2, padding=1)
+
+
+def library_block_args(x, k1, b1, k2, b2):
+    """`library_block`'s operands from the kernel's: an NCHW view over the
+    channels-last input, OIHW kernels, all in the input's dtype."""
+    oihw = [k.permute(3, 2, 0, 1).contiguous().to(x.dtype) for k in (k1, k2)]
+    return x.permute(0, 3, 1, 2), oihw[0], b1.to(x.dtype), oihw[1], b2.to(x.dtype)
+
+
+def block_work(N, H, W, C, itemsize):
+    """(bytes, operations) of one block: the input read and the output
+    written once, both kernels and biases in f32; two convs (2 x 9C
+    multiply-adds per output), two bias adds, two relus and the skip add
+    per output element."""
+    return (2 * N * H * W * C * itemsize + 4 * (2 * 9 * C * C + 2 * C),
+            2 * 2 * 9 * C * C * N * H * W + 5 * N * H * W * C)
+
+
 def phase_resblock(device):
     import torch
-    import torch.nn.functional as F
 
     from torched_impala_tpu_torch.ops import _build, conv_block, conv_block_cuda, profiling
 
@@ -737,10 +789,6 @@ def phase_resblock(device):
             hgmma[f"resblock_bf16_wgmma_kernel<{match.group(1)}>"] = count
     if not hgmma or min(hgmma.values()) == 0:
         raise AssertionError(f"resblock: bf16 kernels without HGMMA instructions: {hgmma}")
-
-    def library_block(x_nchw, w1, b1, w2, b2):
-        out = F.conv2d(F.relu(x_nchw), w1, b1, padding=1)
-        return x_nchw + F.conv2d(F.relu(out), w2, b2, padding=1)
 
     per_shape, equal_share, plans = {}, {}, {}
     for shape in BLOCK_SHAPES + BLOCK_ACCUM_SHAPES + BLOCK_PROCGEN_SHAPES + BLOCK_BF16_PADDED_SHAPES:
@@ -795,11 +843,8 @@ def phase_resblock(device):
     general_shape = shape  # the last case, f32: timed
     N, H, W, C = general_shape
     args = inputs(*general_shape, torch.float32, seed=7)
-    x, k1, b1, k2, b2 = args
-    lib_args = (x.permute(0, 3, 1, 2), k1.permute(3, 2, 0, 1).contiguous(), b1,
-                k2.permute(3, 2, 0, 1).contiguous(), b2)
-    general_bytes = 2 * N * H * W * C * 4 + 4 * (2 * 9 * C * C + 2 * C)
-    general_ops = 2 * 2 * 9 * C * C * N * H * W + 5 * N * H * W * C
+    lib_args = library_block_args(*args)
+    general_bytes, general_ops = block_work(N, H, W, C, 4)
     general_bound_ms, general_bound_by = bound(general_bytes, general_ops, PEAK_F32_OPS_PER_S)
     general = dict(
         max_abs_err=max(general_err.values()),
@@ -832,11 +877,7 @@ def phase_resblock(device):
     for shape in BLOCK_SHAPES:
         N, H, W, C = shape
         args = inputs(*shape, torch.bfloat16, seed=7)
-        x, k1, b1, k2, b2 = args
-        # The unfused block's operands: bf16 NCHW views over channels-last
-        # memory, OIHW bf16 kernels, bias inside the conv.
-        oihw = [k.permute(3, 2, 0, 1).contiguous().bfloat16() for k in (k1, k2)]
-        lib_args = (x.permute(0, 3, 1, 2), oihw[0], b1.bfloat16(), oihw[1], b2.bfloat16())
+        lib_args = library_block_args(*args)
         kernel_ms = time_cuda(lambda: conv_block_cuda.resblock_cuda(*args), iters=50, warmup=5)
         plain_ms = time_cuda(lambda: conv_block.block_reference(*args), iters=50, warmup=5)
         library_ms = time_cuda(lambda: library_block(*lib_args), iters=50, warmup=5)
@@ -844,10 +885,7 @@ def phase_resblock(device):
             lambda: conv_block_cuda.resblock_cuda(*args), calls=20, name="resblock_bf16_wgmma"
         )
         library_device_us, _ = profiling.device_us(lambda: library_block(*lib_args), calls=20)
-        bytes_moved = 2 * N * H * W * C * 2 + 4 * (2 * 9 * C * C + 2 * C)
-        # Two convs (2 x 9C multiply-adds per output), two bias adds, two
-        # relus and the skip add per output element.
-        ops = 2 * 2 * 9 * C * C * N * H * W + 5 * N * H * W * C
+        bytes_moved, ops = block_work(N, H, W, C, 2)
         bound_ms, bound_by = bound(bytes_moved, ops, PEAK_BF16_OPS_PER_S)
         key = "x".join(map(str, shape))
         times[key] = dict(
@@ -2317,11 +2355,14 @@ ACCUM_PUBLISH_INTERVAL = 2
 ACCUM_F32_RTOL = 1e-3
 
 
-def step_distance(a, b, before) -> float:
-    """||a - b|| / ||b - before|| over every param (float64 sums)."""
-    num = sum(float(((a[k] - b[k]).double() ** 2).sum()) for k in a)
-    den = sum(float(((b[k] - before[k]).double() ** 2).sum()) for k in a)
-    return math.sqrt(num / den)
+def rel_l2(a, b, before=None) -> float:
+    """||a - b|| / ||b - before|| (||b|| without `before`) over the tensors
+    of two dicts with the same keys, or two lists (float64 sums)."""
+    keys = a.keys() if isinstance(a, dict) else range(len(a))
+    num = sum(float(((a[k] - b[k]).double() ** 2).sum()) for k in keys)
+    den = sum(float(((b[k] if before is None else b[k] - before[k]).double() ** 2).sum())
+              for k in keys)
+    return math.sqrt(num / den) if den else math.sqrt(num)
 
 
 def accum_step(cfg, device, state, batch, grad_accum, remat, learner_fields, breakdown=False,
@@ -2503,10 +2544,10 @@ def phase_breakout_accum(device, smi):
     agreement = {}
     for torso, (a, b) in (("f32", (f32[(ACCUM_G, True)], f32[(1, False)])), ("bf16", (lever, base))):
         gn_a, gn_b = (float(r["logs"]["grad_norm_unclipped"]) for r in (a, b))
-        agreement[torso] = dict(step_distance=step_distance(a["params"], b["params"], before),
+        agreement[torso] = dict(step_distance=rel_l2(a["params"], b["params"], before),
                                 grad_norm_G1=gn_b, grad_norm_G2_remat=gn_a)
     gn_f32 = agreement["f32"]["grad_norm_G1"]
-    agreement["bf16"]["bf16_torso_step_distance_from_f32"] = step_distance(
+    agreement["bf16"]["bf16_torso_step_distance_from_f32"] = rel_l2(
         base["params"], f32[(1, False)]["params"], before)
     agreement["bf16"]["bf16_torso_grad_norm_change_from_f32"] = abs(
         agreement["bf16"]["grad_norm_G1"] - gn_f32)
@@ -3009,6 +3050,39 @@ def replay_step(cfg, device, batch, plain):
     return before, after, {k: float(v) for k, v in logs.items()}, launches
 
 
+def kernels_vs_plain_gate(bf16_kernels, bf16_plain, f32_kernels, f32_plain, before=None,
+                          log_keys=None, exact_keys=()):
+    """The gate of the replay and popart phases on four runs of one step,
+    each (values, logs): values a dict of tensors (the params after the
+    step, measured from `before`, or the grads), logs a dict of floats.
+    With the f32 torso the kernels' values lie within
+    REPLAY_F32_STEP_RTOL relative L2 of plain, each log within
+    REPLAY_F32_LOG_TOL * (1 + |log|), and the logs in `exact_keys` are
+    equal; with bf16 the kernels lie closer to plain than plain bf16 lies
+    to plain f32, in values and in each log up to REPLAY_BF16_LOG_TOL *
+    (1 + |log|). Returns (distances, log diffs, the failure or None)."""
+    runs = {"bf16_kernels_vs_plain": (bf16_kernels, bf16_plain),
+            "bf16_plain_vs_f32_plain": (bf16_plain, f32_plain),
+            "f32_kernels_vs_plain": (f32_kernels, f32_plain)}
+    keys = list(bf16_plain[1]) if log_keys is None else log_keys
+    distances = {name: rel_l2(a[0], b[0], before) for name, (a, b) in runs.items()}
+    log_diffs = {name: {k: abs(a[1][k] - b[1][k]) for k in keys}
+                 for name, (a, b) in runs.items()}
+    f32_off = {k: d for k, d in log_diffs["f32_kernels_vs_plain"].items()
+               if d > REPLAY_F32_LOG_TOL * (1 + abs(f32_plain[1][k]))
+               or (k in exact_keys and d)}
+    bf16_off = {k: d for k, d in log_diffs["bf16_kernels_vs_plain"].items()
+                if d > log_diffs["bf16_plain_vs_f32_plain"][k]
+                + REPLAY_BF16_LOG_TOL * (1 + abs(bf16_plain[1][k]))}
+    failure = None
+    if (distances["f32_kernels_vs_plain"] > REPLAY_F32_STEP_RTOL or f32_off
+            or distances["bf16_kernels_vs_plain"] >= distances["bf16_plain_vs_f32_plain"]
+            or bf16_off):
+        failure = (f"distances {distances}, logs past the gate: f32 {f32_off}, "
+                   f"bf16 {bf16_off}")
+    return distances, log_diffs, failure
+
+
 def replay_step_vs_plain(cfg, device, batch, during=()):
     """`replay_step` of `cfg` (a preset with a bf16 torso) on `batch`
     through the kernels and through their plain versions, and the same two
@@ -3023,34 +3097,15 @@ def replay_step_vs_plain(cfg, device, batch, during=()):
     f32 = dataclasses.replace(cfg, compute_dtype="float32")
     _, f32_kernel_after, f32_kernel_logs, _ = replay_step(f32, device, batch, False)
     _, f32_plain_after, f32_plain_logs, _ = replay_step(f32, device, batch, True)
-    distances = {
-        "bf16_kernels_vs_plain": step_distance(kernel_after, plain_after, before),
-        "bf16_plain_vs_f32_plain": step_distance(plain_after, f32_plain_after, before),
-        "f32_kernels_vs_plain": step_distance(f32_kernel_after, f32_plain_after, before),
-    }
-
-    def diffs(a, b):
-        return {k: abs(a[k] - b[k]) for k in REPLAY_LOG_KEYS}
-
-    log_diffs = {
-        "bf16_kernels_vs_plain": diffs(kernel_logs, plain_logs),
-        "bf16_plain_vs_f32_plain": diffs(plain_logs, f32_plain_logs),
-        "f32_kernels_vs_plain": diffs(f32_kernel_logs, f32_plain_logs),
-    }
-    f32_off = {k: d for k, d in log_diffs["f32_kernels_vs_plain"].items()
-               if d > REPLAY_F32_LOG_TOL * (1 + abs(f32_plain_logs[k]))
-               or (k == "impact_clip_frac" and d)}
-    bf16_off = {k: d for k, d in log_diffs["bf16_kernels_vs_plain"].items()
-                if d > log_diffs["bf16_plain_vs_f32_plain"][k]
-                + REPLAY_BF16_LOG_TOL * (1 + abs(plain_logs[k]))}
+    distances, log_diffs, off = kernels_vs_plain_gate(
+        (kernel_after, kernel_logs), (plain_after, plain_logs),
+        (f32_kernel_after, f32_kernel_logs), (f32_plain_after, f32_plain_logs),
+        before=before, log_keys=REPLAY_LOG_KEYS, exact_keys=("impact_clip_frac",))
     failures = []
     if any(plain_launches.values()):
         failures.append(f"the plain step launched {plain_launches}")
-    if (distances["f32_kernels_vs_plain"] > REPLAY_F32_STEP_RTOL or f32_off
-            or distances["bf16_kernels_vs_plain"] >= distances["bf16_plain_vs_f32_plain"]
-            or bf16_off):
-        failures.append(f"kernels vs plain step: distances {distances}, logs past the gate: "
-                        f"f32 {f32_off}, bf16 {bf16_off}")
+    if off:
+        failures.append(f"kernels vs plain step: {off}")
     if not 0.0 < kernel_logs["impact_clip_frac"] < 1.0:
         failures.append(f"the clip does not act on some entries: {kernel_logs['impact_clip_frac']}")
     numbers = {
@@ -3212,6 +3267,477 @@ def phase_replay(device, smi):
     })
     if failures:
         raise AssertionError(f"replay: {failures}")
+
+
+POPART_T, POPART_B, POPART_A, POPART_TASKS = 100, 32, 15, 30
+# The tasks' reward scales, 0.01 to 100, and the statistics the losses
+# start from: POPART_WARMUP_UPDATES `popart.update`s at step size
+# POPART_WARMUP_STEP towards targets at those scales, so that sigma spans
+# about four decades across the tasks (the phase fails under two).
+POPART_WARMUP_UPDATES = 16
+POPART_WARMUP_STEP = 0.5
+# Each PopArt loss through the V-trace kernel against the same loss through
+# V-trace's plain version on the card, on the same inputs: every log within
+# POPART_LOG_RTOL of the larger of the two, the gradients within
+# POPART_GRAD_RTOL relative L2, the new statistics within
+# POPART_STATE_RTOL element by element. The two routes run the same
+# torch ops around V-trace, and the kernel rounds as its plain version
+# does (phase 3), so only `expf` against `exp` may move vs.
+POPART_LOG_RTOL = 1e-5
+POPART_GRAD_RTOL = 1e-5
+POPART_STATE_RTOL = 1e-6
+# After `rescale_params` with an (old, new) pair, the net's unnormalized
+# values sigma' n' + mu' must match sigma n + mu on the same batch within
+# this share of their largest magnitude (f32 heads: a few ulps of it).
+POPART_RESCALE_TOL = 1e-4
+# DMLab-30's grids after the stem's pooling, for the block at N = 101 x 32.
+DMLAB_BLOCK_SHAPES = [(3232, 36, 48, 16), (3232, 18, 24, 32), (3232, 9, 12, 32)]
+
+
+def dmlab30_config():
+    """JAX's DMLAB30 preset (JAX `configs.py:794-810`) with `num_tasks = 1`
+    (the port refuses more until its learner takes PopArt) and the fused
+    blocks."""
+    from torched_impala_tpu_torch import configs
+
+    return configs.ExperimentConfig(
+        name="dmlab30", obs_shape=(72, 96, 3), obs_dtype="uint8", num_actions=15,
+        num_tasks=1, model="deep_resnet", compute_dtype="bfloat16", use_lstm=True,
+        actor_mode="process", num_actors=256, unroll_length=POPART_T,
+        batch_size=POPART_B, total_env_frames=10_000_000_000, fused_conv=True,
+    )
+
+
+def dmlab30_net(cfg, device, seed=0):
+    """`cfg`'s agent net with a POPART_TASKS-wide value head: the torso
+    `configs.make_agent` builds from `seed`, then `ImpalaNet(num_values=30)`
+    over it, on `device`."""
+    import torch
+
+    from torched_impala_tpu_torch import configs
+    from torched_impala_tpu_torch.models.nets import ImpalaNet
+
+    torso = configs.make_agent(cfg, seed=seed).net.torso
+    net = ImpalaNet(cfg.num_actions, torso, core="lstm", lstm_size=cfg.lstm_size,
+                    generator=torch.Generator().manual_seed(seed + 1), num_values=POPART_TASKS)
+    return net.to(device)
+
+
+def popart_tasks(rng):
+    """Task ids `[B]` covering all POPART_TASKS tasks, the rest drawn."""
+    tasks = rng.integers(0, POPART_TASKS, size=POPART_B)
+    tasks[:POPART_TASKS] = rng.permutation(POPART_TASKS)
+    return rng.permutation(tasks)
+
+
+def popart_far_state(device, seed=3):
+    """(PopArtConfig of 30 tasks, the statistics moved far from identity)."""
+    import torch
+
+    from torched_impala_tpu_torch.ops import popart
+
+    rng = np.random.default_rng(seed)
+    scale = np.logspace(-2, 2, POPART_TASKS)
+    offset = rng.uniform(-2, 2, size=POPART_TASKS)
+    config = popart.PopArtConfig(num_values=POPART_TASKS)
+    warm = dataclasses.replace(config, step_size=POPART_WARMUP_STEP)
+    state = popart.init(POPART_TASKS, device)
+    for _ in range(POPART_WARMUP_UPDATES):
+        tasks = popart_tasks(rng)
+        targets = scale[tasks] * (rng.normal(size=(POPART_T, POPART_B)) + offset[tasks])
+        state = popart.update(
+            state, warm, torch.from_numpy(targets.astype(np.float32)).to(device),
+            torch.from_numpy(tasks).to(device), torch.ones(POPART_T, POPART_B, device=device),
+        )
+    return config, state
+
+
+def popart_loss_inputs(device, seed=13):
+    """DMLab-30's loss inputs: T = 100, B = 32, A = 15, 30 tasks, rewards at
+    the task's scale (0.01 to 100), a mask with zeros, episode ends."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    T, B, A = POPART_T, POPART_B, POPART_A
+    tasks = popart_tasks(rng)
+    scale = np.logspace(-2, 2, POPART_TASKS)[tasks]
+    logits = rng.normal(size=(T, B, A))
+    arrays = dict(
+        target_logits=logits,
+        learner_logits=logits + 0.3 * rng.normal(size=(T, B, A)),
+        behaviour_logits=rng.normal(size=(T, B, A)),
+        norm_values=rng.normal(size=(T + 1, B)),
+        rewards=scale * (rng.normal(size=(T, B)) + 0.5),
+        discounts=0.99 * (rng.uniform(size=(T, B)) > 0.05),
+        mask=(rng.uniform(size=(T, B)) > 0.1),
+    )
+    out = {k: torch.from_numpy(v.astype(np.float32)).to(device) for k, v in arrays.items()}
+    out["actions"] = torch.from_numpy(rng.integers(0, A, size=(T, B))).to(device)
+    out["tasks"] = torch.from_numpy(tasks).to(device)
+    return out
+
+
+def popart_loss_pass(x, kind, health, config, state):
+    """One PopArt loss on `x`, forward and backward: "impala",
+    "impala_fixed" (its `fixed_new_state` from `popart_target_moments` and
+    `apply_moments`, gradient accumulation's batch-end scheme at G = 1) or
+    "impact". Returns (float logs, [grad of the logits, grad of the
+    [T+1, B] normalized values], new statistics)."""
+    import torch
+
+    from torched_impala_tpu_torch.ops import popart
+    from torched_impala_tpu_torch.ops.losses import ImpalaLossConfig
+
+    loss_config = ImpalaLossConfig(health_diagnostics=health)
+    logits = x["learner_logits" if kind == "impact" else "target_logits"].clone().requires_grad_()
+    nv = x["norm_values"].clone().requires_grad_()
+    common = dict(behaviour_logits=x["behaviour_logits"], norm_values=nv[:-1],
+                  norm_bootstrap=nv[-1], actions=x["actions"], rewards=x["rewards"],
+                  discounts=x["discounts"], tasks=x["tasks"], state=state,
+                  popart_config=config, config=loss_config, mask=x["mask"])
+    if kind == "impact":
+        out, new = popart.popart_impact_loss(
+            learner_logits=logits, target_logits=x["target_logits"], **common)
+    else:
+        fixed = None
+        if kind == "impala_fixed":
+            fixed = popart.apply_moments(state, config, *popart.popart_target_moments(
+                target_logits=logits, **common))
+        out, new = popart.popart_impala_loss(target_logits=logits, fixed_new_state=fixed, **common)
+    grads = list(torch.autograd.grad(out.total, (logits, nv)))
+    return {k: float(v.detach()) for k, v in out.logs.items()}, grads, new
+
+
+def rel_max(a, b) -> float:
+    """max |a - b| / max(|a|, |b|) element by element (0 where a == b)."""
+    import torch
+
+    a, b = a.double(), b.double()
+    diff = (a - b).abs()
+    return float(torch.where(diff > 0, diff / torch.maximum(a.abs(), b.abs()), 0.0).max())
+
+
+def log_rel(a: dict, b: dict) -> dict:
+    """|a - b| / max(|a|, |b|) of each log (0 where they are equal)."""
+    return {k: abs(a[k] - b[k]) / max(abs(a[k]), abs(b[k])) if a[k] != b[k] else 0.0 for k in b}
+
+
+def popart_losses_vs_plain(device):
+    """Part (a) of the popart phase: each PopArt loss at DMLab-30's shapes,
+    health off and on, through the V-trace kernel and through its plain
+    version on the card, from the statistics moved far from identity.
+    Returns (numbers, failures)."""
+    import torch
+
+    from torched_impala_tpu_torch.ops import popart
+
+    config, state = popart_far_state(device)
+    sig = popart.sigma(state, config)
+    decades = math.log10(float(sig.max() / sig.min()))
+    x = popart_loss_inputs(device)
+    failures = []
+    if decades < 2.0:
+        failures.append(f"sigma spans {decades} decades, not two")
+    numbers = {"sigma_decades": decades, "sigma_min": float(sig.min()), "sigma_max": float(sig.max()),
+               "passes": {}}
+    for kind in ("impala", "impala_fixed", "impact"):
+        for health in (False, True):
+            zero_launches()
+            k_logs, k_grads, k_new = popart_loss_pass(x, kind, health, config, state)
+            torch.cuda.synchronize()
+            launches = read_launches()["vtrace"]
+            with PlainKernels():
+                zero_launches()
+                p_logs, p_grads, p_new = popart_loss_pass(x, kind, health, config, state)
+                torch.cuda.synchronize()
+                plain_launches = read_launches()["vtrace"]
+            logs = log_rel(k_logs, p_logs)
+            worst_log = max(logs, key=logs.get)
+            entry = {
+                "vtrace_launches": launches,
+                "vtrace_launches_plain": plain_launches,
+                "log_max_rel": logs[worst_log],
+                "log_max_rel_key": worst_log,
+                "grad_rel_l2": rel_l2(k_grads, p_grads),
+                "state_max_rel": max(rel_max(a, b) for a, b in zip(k_new, p_new)),
+                "bootstrap_grad_max_abs": float(k_grads[1][-1].abs().max()),
+            }
+            name = f"{kind}_health_{'on' if health else 'off'}"
+            numbers["passes"][name] = entry
+            want = 2 if kind == "impala_fixed" else 1
+            if (launches != want or plain_launches or entry["log_max_rel"] > POPART_LOG_RTOL
+                    or entry["grad_rel_l2"] > POPART_GRAD_RTOL
+                    or entry["state_max_rel"] > POPART_STATE_RTOL
+                    or entry["bootstrap_grad_max_abs"] != 0.0
+                    or set(k_logs) != set(p_logs)
+                    or health != any(k.startswith("health_") for k in k_logs)
+                    or not all(math.isfinite(v) for v in k_logs.values())):
+                failures.append(f"{name}: {entry}, want {want} V-trace launches")
+    return numbers, failures
+
+
+def dmlab30_batch(cfg, device, seed=17):
+    """A learner batch at DMLab-30's width from `FakeAtariEnv(obs_shape=(72,
+    96, 3))` fake pixels: 32 envs stepped 100 times with seeded random
+    actions, episodes of 40 to 71 steps (so `first` marks starts inside
+    the unroll), rewards at each env's task scale; non-zero LSTM start
+    states, the task ids, seeded behaviour logits, a mask with zeros."""
+    import torch
+
+    from torched_impala_tpu_torch.envs.fake import FakeAtariEnv
+
+    rng = np.random.default_rng(seed)
+    T, B, A = cfg.unroll_length, cfg.batch_size, cfg.num_actions
+    obs = np.empty((T + 1, B, *cfg.obs_shape), np.uint8)
+    first = np.zeros((T + 1, B), bool)
+    rewards = np.zeros((T, B), np.float32)
+    cont = np.ones((T, B), np.float32)
+    actions = rng.integers(0, A, size=(T, B))
+    for b in range(B):
+        env = FakeAtariEnv(episode_len=40 + b, num_actions=A, seed=seed * 1000 + b,
+                           obs_shape=cfg.obs_shape)
+        obs[0, b], _ = env.reset()
+        for t in range(T):
+            obs[t + 1, b], rewards[t, b], done, _, _ = env.step(int(actions[t, b]))
+            first[t + 1, b], cont[t, b] = done, not done
+    tasks = popart_tasks(rng)
+    rewards = rewards * np.logspace(-2, 2, POPART_TASKS)[tasks]
+
+    def dev(a):
+        return torch.from_numpy(a).to(device)
+
+    return dict(
+        obs=dev(obs), first=dev(first), actions=dev(actions),
+        behaviour_logits=dev(rng.normal(size=(T, B, A)).astype(np.float32)),
+        rewards=dev(rewards.astype(np.float32)), discounts=dev(0.99 * cont),
+        mask=dev((rng.uniform(size=(T, B)) > 0.05).astype(np.float32)),
+        tasks=dev(tasks),
+        state=tuple(dev(rng.normal(size=(B, cfg.lstm_size)).astype(np.float32) * 0.5)
+                    for _ in range(2)),
+    )
+
+
+def dmlab30_values(net, batch):
+    """The net's `[T+1, B, 30]` normalized values on `batch`, no gradient."""
+    import torch
+
+    with torch.no_grad():
+        out, _ = net(batch["obs"], batch["first"], batch["state"], unroll=True)
+    return out.values
+
+
+def dmlab30_step(net, batch, popart_config, state, loss_config):
+    """The unroll, the task-column gather as JAX's `_popart_forward` does
+    it, `popart_impala_loss` and the backward, with cuDNN's deterministic
+    algorithms: (float logs, grads by param name, new statistics)."""
+    import torch
+
+    from torched_impala_tpu_torch.ops import popart
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        out, _ = net(batch["obs"], batch["first"], batch["state"], unroll=True)
+        tasks = batch["tasks"]
+        norm_values = torch.take_along_dim(
+            out.values, tasks.long()[None, :, None], dim=-1)[..., 0]  # [T+1, B]
+        loss, new = popart.popart_impala_loss(
+            target_logits=out.policy_logits[:-1], behaviour_logits=batch["behaviour_logits"],
+            norm_values=norm_values[:-1], norm_bootstrap=norm_values[-1],
+            actions=batch["actions"], rewards=batch["rewards"], discounts=batch["discounts"],
+            tasks=tasks, state=state, popart_config=popart_config, config=loss_config,
+            mask=batch["mask"],
+        )
+        params = dict(net.named_parameters())
+        grads = torch.autograd.grad(loss.total, list(params.values()))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return ({k: float(v.detach()) for k, v in loss.logs.items()},
+            dict(zip(params, (g.detach() for g in grads))), new)
+
+
+def rescale_preserves(net, batch, pairs, config) -> dict:
+    """For each (name, old, new) of `pairs`: the net's unnormalized values
+    on `batch` before, `rescale_params(old, new)` loaded, and after; the
+    largest difference over the largest magnitude. The params come back."""
+    from torched_impala_tpu_torch.ops import popart
+
+    saved = {k: v.clone() for k, v in net.state_dict().items()}
+    out = {}
+    try:
+        before = dmlab30_values(net, batch)
+        for name, old, new in pairs:
+            unnorm = popart.sigma(old, config) * before + old.mu
+            net.load_state_dict(popart.rescale_params(saved, old, new, config))
+            after = popart.sigma(new, config) * dmlab30_values(net, batch) + new.mu
+            out[name] = float((after - unnorm).abs().max() / unnorm.abs().max())
+            net.load_state_dict(saved)
+    finally:
+        net.load_state_dict(saved)
+    return out
+
+
+def dmlab30_net_vs_plain(device, during=()):
+    """Part (b) of the popart phase: the DMLab-30 net at full width (deep
+    ResNet on 72x96x3, LSTM(256), 30 values, fused blocks, T + 1 = 101,
+    B = 32) through the kernels and through their plain versions, with
+    the bf16 torso and an f32 one, into `popart_impala_loss` and back;
+    then `rescale_params`. The context managers in `during` are entered
+    around the first step alone (the kernels, bf16). Returns (numbers,
+    failures)."""
+    import torch
+
+    from torched_impala_tpu_torch import configs
+    from torched_impala_tpu_torch.ops import popart
+
+    cfg = dmlab30_config()
+    loss_config = configs.make_learner_config(cfg).loss
+    popart_config, state = popart_far_state(device)
+    batch = dmlab30_batch(cfg, device)
+    net = dmlab30_net(cfg, device)
+    f32_net = dmlab30_net(dataclasses.replace(cfg, compute_dtype="float32"), device)
+    f32_net.load_state_dict(net.state_dict())
+    failures = []
+    with contextlib.ExitStack() as stack:
+        for manager in during:
+            stack.enter_context(manager)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mb = torch.cuda.memory_allocated() / 2**20
+        zero_launches()
+        t0 = time.monotonic()
+        k_logs, k_grads, k_new = dmlab30_step(net, batch, popart_config, state, loss_config)
+        torch.cuda.synchronize()
+        step_s = time.monotonic() - t0
+        launches = read_launches()
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20 - base_mb
+    with PlainKernels():
+        zero_launches()
+        p_logs, p_grads, p_new = dmlab30_step(net, batch, popart_config, state, loss_config)
+        torch.cuda.synchronize()
+        plain_launches = read_launches()
+    f32_k_logs, f32_k_grads, _ = dmlab30_step(f32_net, batch, popart_config, state, loss_config)
+    with PlainKernels():
+        f32_p_logs, f32_p_grads, _ = dmlab30_step(f32_net, batch, popart_config, state, loss_config)
+    distances, log_diffs, off = kernels_vs_plain_gate(
+        (k_grads, k_logs), (p_grads, p_logs), (f32_k_grads, f32_k_logs), (f32_p_grads, f32_p_logs))
+    state_rel = max(rel_max(a, b) for a, b in zip(k_new, p_new))
+    want = {"vtrace": 1, "lstm_cell": POPART_T + 1, "resblock": 6}
+    if {k: launches[k] for k in want} != want:
+        failures.append(f"step launches {launches}, want {want}")
+    if any(plain_launches.values()):
+        failures.append(f"the plain step launched {plain_launches}")
+    if off:
+        failures.append(f"kernels vs plain grads: {off}")
+    if not all(math.isfinite(v) for v in k_logs.values()):
+        failures.append(f"non-finite logs {k_logs}")
+    init = popart.init(POPART_TASKS, device)
+    rescale = rescale_preserves(net, batch, [("loss_old_to_new", state, k_new),
+                                             ("far_to_identity", state, init)], popart_config)
+    if max(rescale.values()) > POPART_RESCALE_TOL:
+        failures.append(f"rescale_params moved the unnormalized values: {rescale}")
+    numbers = {
+        "step_seconds_through_the_kernels": step_s,
+        "step_peak_device_mb_above_start": peak_mb,
+        "launches_through_the_kernels": launches,
+        "launches_through_the_plain_versions": plain_launches,
+        "grad_distances": distances,
+        "log_abs_diffs": log_diffs,
+        "new_statistics_max_rel_kernels_vs_plain": state_rel,
+        "rescale_max_rel": rescale,
+        "sigma_mean_new": k_logs["popart_sigma_mean"],
+    }
+    return numbers, failures
+
+
+def phase_popart(device, smi):
+    """PopArt at DMLab-30's shapes (module docstring, phase 20): (a) the
+    losses through the V-trace kernel and its plain version; (b) the
+    DMLab-30 net at full width through the kernels and their plain
+    versions, into `popart_impala_loss` and back, then `rescale_params`;
+    each kernel held to its plain version on the step's own inputs, with
+    the block's kernel (tuned or general) and one launch's device time at
+    each of the three grids."""
+    import torch
+
+    from torched_impala_tpu_torch.ops import (
+        conv_block, conv_block_cuda, lstm, lstm_cuda, profiling, vtrace_cuda,
+    )
+    from torched_impala_tpu_torch.ops.vtrace import vtrace_reference
+
+    marks = [time.monotonic()]
+    losses, failures = popart_losses_vs_plain(device)
+    marks.append(time.monotonic())
+    N = DMLAB_BLOCK_SHAPES[0][0]
+    vtraces = CaptureInputs(vtrace_cuda, "vtrace_cuda", lambda a, kw: tuple(kw["log_rhos"].shape))
+    cells = CaptureInputs(lstm_cuda, "lstm_cell_cuda", lambda a, kw: tuple(a[0].shape))
+    blocks = CaptureInputs(conv_block_cuda, "resblock_cuda",
+                           lambda a, kw: tuple(a[0].shape) if a[0].shape[0] == N else None)
+    net, net_failures = dmlab30_net_vs_plain(device, during=(vtraces, cells, blocks))
+    failures += net_failures
+    errors, equal, grids = {}, {}, {}
+    _, kwargs = vtraces.captured[(POPART_T, POPART_B)]
+    out, ref = vtrace_cuda.vtrace_cuda(**kwargs), vtrace_reference(**kwargs)
+    errors["vtrace"] = max(float((a - b).abs().max()) for a, b in zip(out, ref))
+    for shape, (args, _) in cells.captured.items():
+        out, ref = lstm_cuda.lstm_cell_cuda(*args), lstm.lstm_reference(*args)
+        errors["lstm_cell_" + "x".join(map(str, shape))] = max(
+            float((a - b).abs().max()) for a, b in zip(out, ref))
+    for shape, (args, _) in sorted(blocks.captured.items()):
+        x, *params = args
+        key = "x".join(map(str, shape))
+        out, ref = conv_block_cuda.resblock_cuda(*args), conv_block.block_reference(*args)
+        if not torch.allclose(out.float(), ref.float(), rtol=BF16_ULP, atol=BF16_ULP):
+            failures.append(f"resblock {key} past one bf16 rounding of its plain version")
+        errors["resblock_" + key] = float((out.float() - ref.float()).abs().max())
+        equal["resblock_" + key] = float((out == ref).float().mean())
+        # The f32 kernel at the same grid, on the same input cast up.
+        f32_args = (x.float(), *params)
+        f32_out, f32_ref = conv_block_cuda.resblock_cuda(*f32_args), conv_block.block_reference(*f32_args)
+        errors["resblock_f32_" + key] = float((f32_out - f32_ref).abs().max())
+        if errors["resblock_f32_" + key] > 1e-5 * max(1.0, float(f32_ref.abs().max())):
+            failures.append(f"f32 resblock {key} vs plain {errors['resblock_f32_' + key]}")
+        grids[key] = {}
+        for dtype, a in (("bf16", args), ("f32", f32_args)):
+            route = conv_block_cuda.route(a[0].dtype, shape[2], shape[3])
+            name = {"bf16": "resblock_bf16_wgmma", "f32": "resblock_f32",
+                    "general": "resblock_general"}[route]
+            device_us, kernels = profiling.device_us(
+                lambda: conv_block_cuda.resblock_cuda(*a), calls=10, name=name)
+            lib_args = library_block_args(*a)
+            cudnn_us, _ = profiling.device_us(lambda: library_block(*lib_args), calls=10)
+            bound_ms, bound_by = bound(
+                *block_work(*shape, a[0].element_size()),
+                PEAK_BF16_OPS_PER_S if dtype == "bf16" else PEAK_F32_OPS_PER_S)
+            grids[key][dtype] = {"kernel": route, "device_us_one_launch": device_us,
+                                 "kernels_a_call": kernels,
+                                 "cudnn_pair_device_us_one_call": cudnn_us,
+                                 "bound_us": bound_ms * 1e3, "bound_by": bound_by}
+    lstm_err = max((v for k, v in errors.items() if k.startswith("lstm")), default=math.inf)
+    if (errors["vtrace"] > 1e-5 or lstm_err > LSTM_ATOL or set(cells.captured) != {(POPART_B, 256)}
+            or sorted(blocks.captured) != sorted(DMLAB_BLOCK_SHAPES) or min(equal.values()) < 0.99):
+        failures.append(f"kernels vs plain on the step's inputs {errors}, equal {equal}, "
+                        f"cells {sorted(cells.captured)}, blocks {sorted(blocks.captured)}")
+    marks.append(time.monotonic())
+    emit({
+        "phase": "popart",
+        "card": smi,
+        "seconds_by_part": dict(zip(("a", "b"), np.diff(marks).tolist())),
+        "losses": losses,
+        "dmlab30_net": {
+            **net,
+            "kernel_calls_by_shape": {
+                "vtrace": {"x".join(map(str, k)): n for k, n in vtraces.calls.items()},
+                "lstm_cell": {"x".join(map(str, k)): n for k, n in cells.calls.items()},
+                "resblock": {"x".join(map(str, k)): n for k, n in blocks.calls.items()},
+            },
+            "max_abs_err_on_the_steps_inputs": errors,
+            "resblock_equal_share": equal,
+            "resblock_by_grid": grids,
+        },
+        "failures": failures,
+    })
+    if failures:
+        raise AssertionError(f"popart: {failures}")
 
 
 # The resume phase. Run 1's fault plan: one env worker killed (the 60th
@@ -3726,6 +4252,7 @@ def run_phases():
     transformer_launches = phase_pong_transformer(device)
     phase_health(device, smi)
     phase_replay(device, smi)
+    phase_popart(device, smi)
     for name in ("fused_loss_fwd", "fused_loss_bwd", "attention_fwd", "attention_bwd"):
         launches[name] = transformer_launches[name]
     # No preset reaches the general kernels' shapes: their main-path count

@@ -1618,6 +1618,49 @@ def test_breakout_replay_step_through_lstm_and_block_matches_the_plain_route(cud
 
 
 @pytest.mark.gpu
+def test_popart_losses_through_vtrace_match_the_plain_route(cuda):
+    """`popart_impala_loss` (with and without `fixed_new_state`) and
+    `popart_impact_loss` at DMLab-30's shapes (T = 100, B = 32, 30 tasks,
+    sigma spanning two decades or more), health off and on, through the
+    V-trace kernel against V-trace's plain version on the card: logs 1e-5
+    relative, gradients 1e-5 relative L2, new statistics 1e-6 relative,
+    one kernel launch a V-trace pass (chip_smoke's popart phase, part a)."""
+    import chip_smoke
+
+    numbers, failures = chip_smoke.popart_losses_vs_plain(cuda)
+    assert failures == []
+    assert numbers["sigma_decades"] >= 2.0
+    assert {k: v["vtrace_launches"] for k, v in numbers["passes"].items()} == {
+        "impala_health_off": 1, "impala_health_on": 1, "impala_fixed_health_off": 2,
+        "impala_fixed_health_on": 2, "impact_health_off": 1, "impact_health_on": 1,
+    }
+
+
+@pytest.mark.gpu
+def test_popart_rescale_preserves_the_dmlab30_nets_outputs(cuda):
+    """The DMLab-30 net at full width (bf16 torso, fused blocks, 30 values,
+    T + 1 = 101, B = 32): after one `popart_impala_loss` step through the
+    kernels, `rescale_params` with its (old, new) statistics, and with the
+    far statistics back to identity, keeps the unnormalized values
+    sigma * n + mu within 1e-4 of their largest magnitude."""
+    import chip_smoke
+
+    from torched_impala_tpu_torch import configs
+    from torched_impala_tpu_torch.ops import popart
+
+    cfg = chip_smoke.dmlab30_config()
+    config, state = chip_smoke.popart_far_state(cuda)
+    net = chip_smoke.dmlab30_net(cfg, cuda)
+    batch = chip_smoke.dmlab30_batch(cfg, cuda)
+    _, _, new = chip_smoke.dmlab30_step(net, batch, config, state,
+                                        configs.make_learner_config(cfg).loss)
+    errors = chip_smoke.rescale_preserves(
+        net, batch, [("loss_old_to_new", state, new),
+                     ("far_to_identity", state, popart.init(30, cuda))], config)
+    assert max(errors.values()) <= chip_smoke.POPART_RESCALE_TOL, errors
+
+
+@pytest.mark.gpu
 def test_replayed_pinned_slot_copies_the_same_bytes_as_its_first_delivery(cuda):
     """A ring slot delivered fresh, then replayed (max_reuse = 2): both
     side-stream copies of its pinned buffers, each waited for by its own

@@ -349,6 +349,7 @@ def make_agent(cfg: ExperimentConfig, seed: int = 0) -> Agent:
         generator=g,
         transformer=transformer,
         remat_torso=cfg.remat_torso,
+        num_values=cfg.num_tasks,
     )
     return Agent(net)
 

@@ -22,8 +22,10 @@ zeroes the carry rows where `first` is set before each cell step: the
 `hk.ResetCore` semantics of the JAX `_core_step`. The transformer core
 (models/transformer.py) resets by segment ids instead and carries a KV
 cache. The heads always run in float32, also on bf16 params (the
-params are cast up, as flax's Dense promotes them); the value head is one
-wide (PopArt's per-task width is not ported yet).
+params are cast up, as flax's Dense promotes them). The value head is
+`num_values` wide: 1, or one normalized value a task under PopArt
+(`ops/popart.py`, whose `rescale_params` reads `value_head.weight` `[K, F]`
+and `value_head.bias` `[K]` by these names).
 
 `bound_params` runs the net on other tensors than its own params: the
 learner's bf16 train step binds the params that `ops/precision.py:
@@ -50,7 +52,7 @@ NetState = Any
 
 
 class NetOutput(NamedTuple):
-    """Policy logits `[..., A]` and values `[..., 1]`, float32."""
+    """Policy logits `[..., A]` and values `[..., num_values]`, float32."""
 
     policy_logits: torch.Tensor
     values: torch.Tensor
@@ -95,12 +97,15 @@ class ImpalaNet(nn.Module):
         generator: Optional[torch.Generator] = None,
         transformer: Optional[dict] = None,
         remat_torso: bool = False,
+        num_values: int = 1,
     ) -> None:
         """`transformer`: `TransformerCore` keyword arguments, used when
         core="transformer"; `remat_torso`: rematerialize the torso in the
-        learner's backward (module docstring)."""
+        learner's backward (module docstring); `num_values`: the value
+        head's width (1, or num_tasks under PopArt)."""
         super().__init__()
         self.remat_torso = remat_torso
+        self.num_values = num_values
         if core not in ("none", "lstm", "transformer"):
             raise ValueError(f"unknown core {core!r}")
         self.num_actions = num_actions
@@ -116,7 +121,7 @@ class ImpalaNet(nn.Module):
             )
             features = self.transformer.d_model
         self.policy_head = nn.Linear(features, num_actions)
-        self.value_head = nn.Linear(features, 1)
+        self.value_head = nn.Linear(features, num_values)
         init_dense_(self.policy_head, generator)
         init_dense_(self.value_head, generator)
 

@@ -366,6 +366,15 @@ class Learner:
                 f"batch_size {config.batch_size} not divisible by grad_accum {G}"
             )
         precision.validate_compute_dtype("train_step", config.train_dtype)
+        num_values = agent.net.num_values
+        if num_values != 1:
+            # The step reads the value head's column 0 (`_grads_on`): a
+            # wider head would train task 0's column for every env.
+            raise NotImplementedError(
+                f"the net's value head is {num_values} wide: the learner's "
+                "PopArt step (per-task statistics, the head rescale) is not "
+                "ported yet (ROADMAP.md queue 1: DMLab-30)"
+            )
         # Replay, checked before the ring is built (JAX's refusals). A
         # disabled config is None from here on: the step without replay.
         rp = config.replay
